@@ -1,0 +1,62 @@
+"""Carry state between the JAX package and the port, as numpy arrays.
+
+The reference's state is `Graph(src, dst, valid, w, n)`, the six fields of
+`BatchUpdate` and `HighwayLabelling(landmarks, dist, hub, highway)`. Each
+`*_from_numpy` takes those fields (any array-likes; `np.asarray` pulls a
+JAX array to the host) and builds the port's tensors on `device`; each
+`*_to_numpy` returns the fields in the same order as numpy arrays. Dtypes
+are the reference's: int32 ids, distances and weights, bool flags.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.labelling import HighwayLabelling
+from repro_torch.graphs.coo import BatchUpdate, Graph
+
+
+def _t(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(device)  # a copy
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def graph_from_numpy(src, dst, valid, w, n: int, *,
+                     device: str | torch.device) -> Graph:
+    return Graph(_t(src, np.int32, device), _t(dst, np.int32, device),
+                 _t(valid, bool, device), _t(w, np.int32, device), int(n))
+
+
+def graph_to_numpy(g: Graph) -> tuple:
+    """(src, dst, valid, w, n)."""
+    return _np(g.src), _np(g.dst), _np(g.valid), _np(g.w), g.n
+
+
+def batch_from_numpy(src, dst, is_del, valid, w, is_rew, *,
+                     device: str | torch.device) -> BatchUpdate:
+    return BatchUpdate(_t(src, np.int32, device), _t(dst, np.int32, device),
+                       _t(is_del, bool, device), _t(valid, bool, device),
+                       _t(w, np.int32, device), _t(is_rew, bool, device))
+
+
+def batch_to_numpy(b: BatchUpdate) -> tuple:
+    """(src, dst, is_del, valid, w, is_rew)."""
+    return tuple(_np(x) for x in (b.src, b.dst, b.is_del, b.valid, b.w,
+                                  b.is_rew))
+
+
+def labelling_from_numpy(landmarks, dist, hub, highway, *,
+                         device: str | torch.device) -> HighwayLabelling:
+    return HighwayLabelling(_t(landmarks, np.int32, device),
+                            _t(dist, np.int32, device),
+                            _t(hub, bool, device),
+                            _t(highway, np.int32, device))
+
+
+def labelling_to_numpy(lab: HighwayLabelling) -> tuple:
+    """(landmarks, dist, hub, highway)."""
+    return tuple(_np(x) for x in (lab.landmarks, lab.dist, lab.hub,
+                                  lab.highway))

@@ -1,0 +1,265 @@
+"""BatchHL: batch search (Algorithms 2 & 3) and batch repair (Algorithm 4).
+
+The port of `repro.core.batch`, full-sweep mode. The paper's priority-
+queue searches are monotone fixpoints of relaxation sweeps (DESIGN.md §2);
+all landmark planes run together on the plane axis of each sweep, where
+the reference vmaps one plane per sweep. Pass a `RelaxPlan` (from
+`RelaxEngine.prepare` on the post-update snapshot) to run the tiled
+kernel; `plan=None` runs the COO reference. Both give the same planes.
+
+Variants (paper §7 naming):
+  BHL   = basic batch search (Algo 2) + batch repair (Algo 4)
+  BHL+  = improved batch search (Algo 3) + batch repair (Algo 4)
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.engine import RelaxPlan, fixpoint, relax_sweep
+from repro_torch.core.labelling import (
+    HighwayLabelling, INF_KEY2, INF_KEY4, key2_dist, key2_hub, key2_make,
+    key4_beta, key4_extend, key4_from_key2, per_plane_hub_mask,
+)
+from repro_torch.graphs.coo import (INF_D, BatchUpdate, Graph, apply_batch,
+                                    resolve_seed_weights)
+
+
+def check_labelling_width(g: Graph, dist: torch.Tensor) -> None:
+    """The labelling planes must span exactly g.n vertices."""
+    if dist.shape[1] != g.n:
+        raise ValueError(
+            f"labelling planes span {dist.shape[1]} vertices but the graph "
+            f"has n={g.n}; grow them together before updating")
+
+
+def _per_plane_hub_mask(labelling: HighwayLabelling, n: int) -> torch.Tensor:
+    """[R, V] hub mask over the full plane set of a labelling."""
+    return per_plane_hub_mask(labelling.landmarks, labelling.landmarks, n)
+
+
+def _scatter_min_planes(anchor: torch.Tensor, vals: torch.Tensor, n: int,
+                        fill: int) -> torch.Tensor:
+    """Per plane, scatter-min `vals` [P, U] at `anchor` [P, U] into a
+    `fill` plane [P, n]."""
+    plane = torch.full((vals.shape[0], n), fill, dtype=torch.int32,
+                       device=vals.device)
+    return plane.scatter_reduce_(1, anchor.to(torch.int64), vals, "amin")
+
+
+# ---------------------------------------------------------------------------
+# Batch Search — Algorithm 2 (basic, returns CP-affected superset)
+# ---------------------------------------------------------------------------
+#
+# Each search is a *seed* (scatter the batch's anchor keys into the
+# planes) and a *step* (one relaxation wave over all planes); the search
+# result is the step's fixpoint from the seed.
+
+def search_basic_seed(g_new: Graph, batch: BatchUpdate, dist_g: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Algo-2 seeds for a plane slice: (seed keys [P, V], seeded [P, V])."""
+    src, dst = batch.src.to(torch.int64), batch.dst.to(torch.int64)
+    da = dist_g[:, src]                                       # [P, U]
+    db = dist_g[:, dst]
+    nontrivial = (da != db) & batch.valid[None, :]
+    anchor = torch.where(da < db, dst[None, :], src[None, :])
+    # The anchor's candidate distance crosses the update's edge at its
+    # seed weight; d_pre ≤ INF_D and w ≤ INF_D keep the sum in int32.
+    seed_d = (torch.minimum(da, db) + batch.w[None, :]).clamp_max(INF_D)
+    seed_d = torch.where(nontrivial, seed_d, INF_D)
+    seed = _scatter_min_planes(anchor, seed_d, g_new.n, INF_D)
+    return seed, seed < INF_D           # anchors join V_AFF+ unconditionally
+
+
+def search_basic_step(plan: RelaxPlan | None, g_new: Graph,
+                      best: torch.Tensor, seed: torch.Tensor,
+                      dist_g: torch.Tensor) -> torch.Tensor:
+    """One Algo-2 relaxation wave over all planes of a slice [P, V]."""
+    cand = relax_sweep(plan, g_new, best, 1, INF_D)
+    cand = torch.where(cand <= dist_g, cand, INF_D)           # Algo2 line 12
+    return torch.minimum(best, torch.minimum(cand, seed))
+
+
+def search_basic_planes(g_new: Graph, batch: BatchUpdate,
+                        dist_g: torch.Tensor,
+                        plan: RelaxPlan | None = None) -> torch.Tensor:
+    """Algo-2 search over a plane slice `dist_g` [P, V]; returns aff."""
+    seed, seeded = search_basic_seed(g_new, batch, dist_g)
+    best = fixpoint(
+        "search_basic",
+        lambda b: search_basic_step(plan, g_new, b, seed, dist_g), seed)
+    return seeded | (best < INF_D)
+
+
+def batch_search_basic(g_old: Graph, g_new: Graph, batch: BatchUpdate,
+                       labelling: HighwayLabelling,
+                       plan: RelaxPlan | None = None) -> torch.Tensor:
+    """Returns aff[R, V] bool — the CP-affected supersets, per landmark."""
+    return search_basic_planes(g_new, batch, labelling.dist, plan)
+
+
+# ---------------------------------------------------------------------------
+# Batch Search — Algorithm 3 (improved, extended landmark lengths)
+# ---------------------------------------------------------------------------
+
+def search_improved_seed(g_new: Graph, batch: BatchUpdate,
+                         dist_g: torch.Tensor, hub_g: torch.Tensor,
+                         hub_mask: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Algo-3 seeds for a plane slice: (seed key4 [P, V], seeded, beta)."""
+    key2_g = key2_make(dist_g, hub_g)                         # [P, V]
+    beta = key4_beta(key2_g)
+
+    src, dst = batch.src.to(torch.int64), batch.dst.to(torch.int64)
+    da = dist_g[:, src]
+    db = dist_g[:, dst]
+    nontrivial = (da != db) & batch.valid[None, :]
+    a_is_pre = da < db
+    anchor = torch.where(a_is_pre, dst[None, :], src[None, :])
+    pre = torch.where(a_is_pre, src[None, :], dst[None, :])
+
+    key2_pre = key2_g.gather(1, pre)                          # [P, U]
+    # Re-weights take the deletion-flavoured e-flag: like deletions they
+    # can lengthen shortest paths, and e=True is the more inclusive key4.
+    k4 = key4_from_key2(key2_pre, (batch.is_del | batch.is_rew)[None, :])
+    anchor_is_hub = hub_mask.gather(1, anchor)
+    seed_k4 = key4_extend(k4, anchor_is_hub, w=batch.w[None, :])
+    seed_k4 = torch.where(nontrivial, seed_k4, INF_KEY4)
+    seed = _scatter_min_planes(anchor, seed_k4, g_new.n, INF_KEY4)
+    return seed, seed < INF_KEY4, beta
+
+
+def search_improved_step(plan: RelaxPlan | None, g_new: Graph,
+                         best: torch.Tensor, seed: torch.Tensor,
+                         beta: torch.Tensor,
+                         hub_mask: torch.Tensor) -> torch.Tensor:
+    """One Algo-3 relaxation wave over all planes of a slice [P, V]."""
+    cand = relax_sweep(plan, g_new, best, 4, INF_KEY4, hub=hub_mask,
+                       clear_bit=2)
+    cand = torch.where(cand <= beta, cand, INF_KEY4)          # Algo3 line 14
+    return torch.minimum(best, torch.minimum(cand, seed))
+
+
+def search_improved_planes(g_new: Graph, batch: BatchUpdate,
+                           dist_g: torch.Tensor, hub_g: torch.Tensor,
+                           hub_mask: torch.Tensor,
+                           plan: RelaxPlan | None = None) -> torch.Tensor:
+    """Algo-3 search over a plane slice (dist/hub/hub_mask [P, V])."""
+    seed, seeded, beta = search_improved_seed(g_new, batch, dist_g, hub_g,
+                                              hub_mask)
+    best = fixpoint(
+        "search_improved",
+        lambda b: search_improved_step(plan, g_new, b, seed, beta, hub_mask),
+        seed)
+    return seeded | (best < INF_KEY4)
+
+
+def batch_search_improved(g_old: Graph, g_new: Graph, batch: BatchUpdate,
+                          labelling: HighwayLabelling,
+                          plan: RelaxPlan | None = None) -> torch.Tensor:
+    """Returns aff[R, V] bool ⊇ LD-affected vertices, per landmark."""
+    hub_mask = _per_plane_hub_mask(labelling, g_new.n)
+    return search_improved_planes(g_new, batch, labelling.dist, labelling.hub,
+                                  hub_mask, plan)
+
+
+# ---------------------------------------------------------------------------
+# Batch Repair — Algorithm 4
+# ---------------------------------------------------------------------------
+
+def _edge_ends(g: Graph, aff: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per plane and slot: (source affected, destination affected)."""
+    return aff[:, g.src.to(torch.int64)], aff[:, g.dst.to(torch.int64)]
+
+
+def repair_base(plan: RelaxPlan | None, g_new: Graph, aff: torch.Tensor,
+                key2_g: torch.Tensor, hub_mask: torch.Tensor) -> torch.Tensor:
+    """Algo-4 boundary seeds: landmark-distance bounds from *unaffected*
+    neighbours (line 3), INF_KEY2 off the affected sets. [P, V]."""
+    src_aff, dst_aff = _edge_ends(g_new, aff)
+    bou_mask = g_new.valid & ~src_aff & dst_aff
+    base = relax_sweep(plan, g_new, key2_g, 2, INF_KEY2, hub=hub_mask,
+                       clear_bit=1, edge_mask=bou_mask)
+    return torch.where(aff, base, INF_KEY2)
+
+
+def repair_step(plan: RelaxPlan | None, g_new: Graph, cur: torch.Tensor,
+                aff: torch.Tensor, hub_mask: torch.Tensor,
+                int_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One Algo-4 interior relaxation wave (lines 5-15) over a slice.
+
+    `int_mask` [P, E2] (edges with both ends affected) is a function of
+    aff alone; a fixpoint passes it in once instead of re-deriving it
+    every wave.
+    """
+    if int_mask is None:
+        src_aff, dst_aff = _edge_ends(g_new, aff)
+        int_mask = g_new.valid & src_aff & dst_aff
+    cand = relax_sweep(plan, g_new, cur, 2, INF_KEY2, hub=hub_mask,
+                       clear_bit=1, edge_mask=int_mask)
+    return torch.minimum(cur, cand)
+
+
+def repair_merge(aff: torch.Tensor, settled: torch.Tensor,
+                 key2_g: torch.Tensor) -> torch.Tensor:
+    """Rewrite only affected entries; unaffected labels are untouched."""
+    return torch.where(aff, settled, key2_g)
+
+
+def repair_planes(g_new: Graph, aff: torch.Tensor, key2_g: torch.Tensor,
+                  hub_mask: torch.Tensor,
+                  plan: RelaxPlan | None = None) -> torch.Tensor:
+    """Algo-4 repair over a plane slice; returns new key2 [P, V].
+
+    The paper's ascending-distance wavefront is a boundary-seeded
+    relaxation fixpoint: identical final values by Lemma 5.20 and
+    monotonicity.
+    """
+    base = repair_base(plan, g_new, aff, key2_g, hub_mask)
+    src_aff, dst_aff = _edge_ends(g_new, aff)
+    int_mask = g_new.valid & src_aff & dst_aff
+    del src_aff, dst_aff
+    settled = fixpoint(
+        "repair",
+        lambda c: repair_step(plan, g_new, c, aff, hub_mask, int_mask), base)
+    return repair_merge(aff, settled, key2_g)
+
+
+def batch_repair(g_new: Graph, aff: torch.Tensor,
+                 labelling: HighwayLabelling,
+                 plan: RelaxPlan | None = None) -> HighwayLabelling:
+    """Settle d^L_{G'} on the affected sets and rewrite labels minimally."""
+    hub_mask = _per_plane_hub_mask(labelling, g_new.n)
+    new_key2 = repair_planes(g_new, aff, labelling.key2(), hub_mask, plan)
+    dist = key2_dist(new_key2).clamp_max(INF_D)
+    hub = key2_hub(new_key2) & (dist < INF_D)
+    highway = dist[:, labelling.landmarks.to(torch.int64)].contiguous()
+    return HighwayLabelling(labelling.landmarks, dist, hub, highway)
+
+
+# ---------------------------------------------------------------------------
+# BatchHL — Algorithm 1
+# ---------------------------------------------------------------------------
+
+def batchhl_update(g_old: Graph, batch: BatchUpdate,
+                   labelling: HighwayLabelling, improved: bool = True,
+                   plan: RelaxPlan | None = None,
+                   g_new: Graph | None = None
+                   ) -> tuple[Graph, HighwayLabelling, torch.Tensor]:
+    """One BatchHL step: apply B, search, repair. Returns (G', Γ', aff).
+
+    `plan` must be prepared from the *post-update* snapshot G' so the
+    tiling covers the edges the batch inserts; plan=None runs the COO
+    reference. A caller that already built G' (typically for that
+    prepare) passes it as `g_new`; it must equal apply_batch(g_old, batch).
+    """
+    check_labelling_width(g_old, labelling.dist)
+    if g_new is None:
+        g_new = apply_batch(g_old, batch)
+    # Seeds for deletions / re-weights cross the edge at its pre-update
+    # weight (resp. min of old/new), resolved against g_old.
+    batch = resolve_seed_weights(g_old, batch)
+    search = batch_search_improved if improved else batch_search_basic
+    aff = search(g_old, g_new, batch, labelling, plan)
+    new_labelling = batch_repair(g_new, aff, labelling, plan)
+    return g_new, new_labelling, aff

@@ -1,0 +1,186 @@
+"""The relaxation engine: one seam for every sweep of the port.
+
+Every wave — construction (`core/construct.py`), batch search Algos 2–3
+and batch repair Algo 4 (`core/batch.py`), and the BiBFS expansion
+(`core/query.py`) — is one call of
+
+    cand[p, v] = min over masked edges (u, v) of extend(keys[p, u], v)
+    extend(k, v) = min(k + step·w(u,v), inf), `clear_bit` cleared when v
+                   is a hub landmark of plane p
+
+over an explicit plane axis P (the reference vmaps one plane per call).
+`relax_sweep` runs it on the COO arrays in plain PyTorch when `plan` is
+None (the reference's "jnp" branch), and through the tiled kernel wrapper
+`kernels/edge_relax` when the plan carries a tiling: the CUDA kernel on
+the GPU, its plain twin on the CPU.
+
+The reference's `lax.while_loop` fixpoints become host loops with one
+`.item()` convergence check per wave. `WAVES` counts the waves of each
+fixpoint kind, so a caller can report them (and a later change can price
+the host syncs): set it to zero, run, read.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import torch
+
+from repro_torch.core.labelling import sat_add
+from repro_torch.device import resolve_device
+from repro_torch.graphs.coo import Graph
+from repro_torch.graphs.segment import masked_segment_min
+from repro_torch.kernels.edge_relax import ops as er_ops
+from repro_torch.kernels.edge_relax.ops import BlockedGraph
+
+#: Waves run per fixpoint kind ("construct", "search_basic",
+#: "search_improved", "repair", "bibfs") since the last `WAVES.clear()`.
+WAVES: collections.Counter = collections.Counter()
+
+_MAX_WAVES_CAP = 1 << 20  # safety valve; loops exit on fixpoint far earlier
+
+
+@dataclasses.dataclass(frozen=True)
+class RelaxPlan:
+    """How to run sweeps on one graph snapshot: its prepared tiling."""
+    tiles: BlockedGraph
+
+
+def relax_sweep(plan: RelaxPlan | None, g: Graph, keys: torch.Tensor,
+                step: int, inf: int, *, hub: torch.Tensor | None = None,
+                clear_bit: int = 0,
+                edge_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One relaxation wave of all planes `keys` [P, V] over the edges of g.
+
+    plan=None runs the segment-min reference on the COO arrays; a plan
+    runs the tiled kernel wrapper. `edge_mask` ([E2] or [P, E2]) defaults
+    to g.valid and is in original slot order; `hub` [P, V] / `clear_bit`
+    realise key2/key4 path extension. The add is step·w(u,v), saturating
+    at `inf`.
+    """
+    mask = g.valid if edge_mask is None else edge_mask
+    if plan is None:
+        cand = sat_add(keys[:, g.src.to(torch.int64)], step * g.w, inf)
+        if hub is not None and clear_bit:
+            cand = torch.where(hub[:, g.dst.to(torch.int64)],
+                               cand & ~clear_bit, cand)
+        return masked_segment_min(cand, g.dst, g.n, mask, inf)
+    return er_ops.relax_sweep(keys, plan.tiles, mask, step, inf, g.w,
+                              clear_bit=clear_bit, hub=hub)
+
+
+def fixpoint(kind: str, body_fn, init: torch.Tensor,
+             limit: int = _MAX_WAVES_CAP) -> torch.Tensor:
+    """Iterate x <- body_fn(x) (monotone, elementwise) until unchanged, at
+    most `limit` waves.
+
+    One host sync per wave. Under the reference's vmap each plane's loop
+    ends when every plane has converged; extra waves on a converged plane
+    change nothing, so one loop over [P, V] gives the same planes.
+    """
+    x = init
+    for _ in range(limit):
+        nx = body_fn(x)
+        WAVES[kind] += 1
+        changed = bool((nx != x).any().item())
+        x = nx
+        if not changed:
+            break
+    return x
+
+
+class RelaxEngine:
+    """Host-side owner of the tiling cache.
+
+    block_v:  destination-block size of the tiling (the kernel's output
+              tile).
+    block_e:  row cap: destination blocks with more slots are chunked
+              into several rows. None makes one row per block, padded to
+              the largest block — on power-law graphs that is most of the
+              tile (see `kernel.block_edges_topology`). Every value gives
+              bit-identical sweeps.
+    device:   where plans live; None is the GPU (raises without one).
+    """
+
+    #: Plans kept in the LRU: a serving pipeline keeps two snapshots live
+    #: at once, so re-preparing either must not thrash an O(E log E)
+    #: retile.
+    CACHE_PLANS = 2
+
+    def __init__(self, block_v: int = 512, block_e: int | None = None, *,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.block_v = block_v
+        self.block_e = block_e
+        self._plan: RelaxPlan | None = None
+        self._fingerprint: tuple | None = None
+        self._plans: dict[tuple, RelaxPlan] = {}  # fingerprint-keyed LRU
+        self.retile_count = 0
+        self.stale_cache_retiles = 0  # fingerprint mismatches caught below
+        self.plan_cache_hits = 0      # keyed-cache hits (no retile needed)
+
+    @staticmethod
+    def snapshot_fingerprint(g: Graph) -> tuple:
+        """Cheap identity of a snapshot's topology slots.
+
+        (n, slot count, occupied-slot count, all-slot src/dst checksum),
+        the reference's value exactly. The checksum covers every slot,
+        free ones included, and mixes each slot's hash with its index: two
+        layouts of one edge multiset must not collide, since the tiling
+        embeds a slot permutation. The reference hashes in uint32 with
+        wraparound; here the same value is taken in int64 and masked to
+        32 bits (no product or sum below reaches 2^63).
+        """
+        m32 = 0xFFFFFFFF
+        occupied = int(g.valid.sum().item())
+        idx = torch.arange(g.src.shape[0], dtype=torch.int64, device=g.device)
+        slot_h = (((g.src.to(torch.int64) & m32) * 2654435761
+                   + (g.dst.to(torch.int64) & m32) * 40503) & m32) \
+            ^ ((idx * 2246822519) & m32)
+        chk = int(slot_h.sum().item()) & m32
+        return (g.n, g.src.shape[0], occupied, chk)
+
+    def _cache_is_stale(self, g: Graph) -> bool:
+        """True when g's topology slots don't match the cached tiling.
+
+        Deletion-only churn keeps n, slot count and checksum and can only
+        shrink the occupied count; anything else mismatches.
+        """
+        n, cap, occupied, chk = self._fingerprint
+        n2, cap2, occupied2, chk2 = self.snapshot_fingerprint(g)
+        return (n2, cap2, chk2) != (n, cap, chk) or occupied2 > occupied
+
+    def prepare(self, g: Graph, topology_changed: bool = True,
+                verify_cache: bool = True) -> RelaxPlan:
+        """Plan sweeps for snapshot g, reusing the cached tiling when the
+        caller vouches that no topology slot changed since the last prepare.
+
+        The vouch is verified against the fingerprint unless
+        `verify_cache=False`; a mismatch retiles (`stale_cache_retiles`).
+        Topology changes go through the fingerprint-keyed LRU: a snapshot
+        whose slots match a cached tiling reuses it (`plan_cache_hits`).
+        """
+        if g.device != self.device:
+            raise ValueError(f"graph is on {g.device}, engine on "
+                             f"{self.device}")
+        if self._plan is not None and not topology_changed:
+            if not (verify_cache and self._cache_is_stale(g)):
+                return self._plan
+            self.stale_cache_retiles += 1
+        fp = self.snapshot_fingerprint(g)
+        plan = self._plans.pop(fp, None)
+        if plan is None:
+            # Host sync: pull the slot arrays once per topology change and
+            # tile only the occupied slots.
+            plan = RelaxPlan(er_ops.prepare_topology(
+                g.src.cpu().numpy(), g.dst.cpu().numpy(),
+                g.valid.cpu().numpy(), g.n, self.block_v, 1, self.block_e,
+                device=self.device))
+            self.retile_count += 1
+        else:
+            self.plan_cache_hits += 1
+        self._plans[fp] = plan  # (re)insert as most-recently used
+        while len(self._plans) > self.CACHE_PLANS:
+            self._plans.pop(next(iter(self._plans)))
+        self._plan, self._fingerprint = plan, fp
+        return plan

@@ -1,0 +1,144 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here launches a hand-written kernel of `repro_torch` and skips
+where `torch.cuda.is_available()` is false (a CUDA kernel has no CPU
+mode). This file imports no JAX, so it also runs on a GPU machine without
+it:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The CPU files `tests/test_torch_*.py` hold the plain versions to the JAX
+package; these hold the kernels to the plain versions, bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api
+from repro_torch.core.engine import RelaxEngine
+from repro_torch.core.labelling import INF_KEY2, INF_KEY4
+from repro_torch.graphs import generators as gen
+from repro_torch.graphs.coo import INF_D
+from repro_torch.kernels.edge_relax import kernel as rk
+from repro_torch.kernels.edge_relax import ops as rops
+from repro_torch.kernels.minplus import kernel as mk
+
+PARAMS = [(1, INF_D, 0), (2, INF_KEY2, 1), (4, INF_KEY4, 2)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _sweep_equal(bg, keys, hub, mask, w, step, inf, clear):
+    args = (keys, hub, bg.src_t, bg.dstloc_t, bg.perm_t, bg.slot_t,
+            bg.rowblk_t, mask, w, step, inf, clear, bg.n, bg.block_v, bg.nb)
+    before = rk.launches
+    got = rk.relax_sweep(*args)
+    torch.cuda.synchronize()
+    assert rk.launches == before + 1
+    assert torch.equal(got, rk.relax_sweep_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step,inf,clear", PARAMS)
+@pytest.mark.parametrize("block_e,shards", [(None, 1), (7, 2), (1, 3)])
+def test_relax_sweep_kernel_matches_plain(dev, step, inf, clear, block_e,
+                                          shards):
+    rng = np.random.default_rng(step * 10 + shards)
+    n, m, p = 61, 240, 3
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    keep = rng.random(m) < 0.8
+    masks = torch.from_numpy(keep & (rng.random((p, m)) < 0.85)).to(dev)
+    w = torch.from_numpy(rng.integers(1, 9, m).astype(np.int32)).to(dev)
+    hub = torch.from_numpy(rng.random((p, n)) < 0.3).to(dev)
+    keys = torch.from_numpy(rng.integers(0, inf, (p, n), endpoint=True)
+                            .astype(np.int32)).to(dev)
+    bg = rops.prepare_topology(src, dst, keep, n, 16, shards, block_e,
+                               device=dev)
+    for h in (None, hub):
+        for mask in (masks[0].contiguous(), masks):
+            _sweep_equal(bg, keys, h, mask, w, step, inf, clear)
+    _sweep_equal(bg, keys, hub, torch.zeros_like(masks[0]), w, step, inf,
+                 clear)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step,inf,clear", PARAMS)
+def test_relax_sweep_kernel_near_inf(dev, step, inf, clear):
+    """Keys step·INF_D + step − 1 through w = INF_D edges: the sum passes
+    2^31 at step 4 and must saturate, then hub-clear below inf."""
+    n = 6
+    src = np.array([0, 1, 2, 3], np.int32)
+    dst = np.array([1, 2, 3, 4], np.int32)
+    keep = np.ones(4, bool)
+    bg = rops.prepare_topology(src, dst, keep, n, 4, 1, None, device=dev)
+    keys = torch.full((1, n), step * INF_D + step - 1, dtype=torch.int32,
+                      device=dev)
+    hub = torch.tensor([[False, True, False, True, False, False]],
+                       device=dev)
+    _sweep_equal(bg, keys, hub, torch.from_numpy(keep).to(dev),
+                 torch.full((4,), INF_D, dtype=torch.int32, device=dev),
+                 step, inf, clear)
+
+
+@pytest.mark.cuda
+def test_relax_sweep_kernel_short_last_shard(dev):
+    n = 24
+    rng = np.random.default_rng(0)
+    dst = np.array([1, 9, 16, 17, 18, 19, 20, 21, 2, 10], np.int32)
+    src = rng.integers(0, n, len(dst)).astype(np.int32)
+    keep = np.ones(len(dst), bool)
+    bg = rops.prepare_topology(src, dst, keep, n, 8, 2, 4, device=dev)
+    assert bg.chunked and bg.src_t.shape[1] == bg.nb
+    keys = torch.from_numpy(rng.integers(0, 2 * n, (2, n)).astype(np.int32))
+    _sweep_equal(bg, keys.to(dev), None, torch.from_numpy(keep).to(dev),
+                 torch.ones(len(dst), dtype=torch.int32, device=dev), 1,
+                 1 << 29, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,r", [(1, 32, 32), (32, 32, 32),
+                                   (1024, 32, 32), (64, 8, 32)])
+def test_minplus_kernel_matches_plain(dev, b, p, r):
+    rng = np.random.default_rng(b + p)
+
+    def draw(shape):
+        x = rng.integers(0, 64, shape).astype(np.int32)
+        x[rng.random(shape) < 0.2] = 1 << 29
+        return torch.from_numpy(x).to(dev)
+    s, h, t = draw((b, p)), draw((p, r)), draw((b, r))
+    before = mk.launches
+    got = mk.minplus(s, h, t)
+    torch.cuda.synchronize()
+    assert mk.launches == before + 1
+    assert torch.equal(got, mk.minplus_plain(s, h, t))
+
+
+@pytest.mark.cuda
+def test_api_on_card_equals_cpu(dev):
+    """build → update → query through the kernels on the card equals the
+    same verbs on the CPU (the COO reference)."""
+    n = 3000
+    edges = gen.barabasi_albert(n, 3, seed=5)
+    ups = gen.random_batch_updates(edges, n, n_ins=40, n_del=40, seed=6)
+    rng = np.random.default_rng(7)
+    s, t = rng.integers(0, n, 64), rng.integers(0, n, 64)
+    out = {}
+    for where in ("cpu", dev):
+        engine = (RelaxEngine(block_v=64, block_e=128, device=where)
+                  if where != "cpu" else None)
+        g, lab = api.build(n, edges, num_landmarks=8, device=where,
+                           engine=engine)
+        g, lab, aff = api.update(g, lab, ups, pad_to=96, engine=engine)
+        d = api.query(g, lab, s, t, engine=engine)
+        out[str(where)] = [x.cpu() for x in (g.src, g.valid, g.w, lab.dist,
+                                             lab.hub, aff, d)]
+    for a, b in zip(*out.values()):
+        assert torch.equal(a, b)

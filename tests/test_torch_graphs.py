@@ -1,0 +1,156 @@
+"""Graph substrate of the PyTorch port against `repro.graphs`, bit for bit.
+
+The same seeded numpy inputs go through `repro` (JAX, CPU) and
+`repro_torch` (device="cpu"); integer outputs must be equal, with no
+tolerance. Covers `from_edges`, `make_batch`, `apply_batch` and
+`resolve_seed_weights` on mixed insert/delete/re-weight batches — with
+unmatched deletes, duplicate re-weights of one edge, free-slot reuse and
+padding rows — the masked segment-min, and the generator copy.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro.graphs import coo as jcoo
+from repro.graphs import generators as jgen
+from repro.graphs import segment as jseg
+from repro_torch import convert as cv
+from repro_torch.graphs import coo as tcoo
+from repro_torch.graphs import generators as tgen
+from repro_torch.graphs import segment as tseg
+
+CPU = "cpu"
+
+
+def _port_graph(gj) -> tcoo.Graph:
+    return cv.graph_from_numpy(gj.src, gj.dst, gj.valid, gj.w, gj.n,
+                               device=CPU)
+
+
+def _port_batch(bj) -> tcoo.BatchUpdate:
+    return cv.batch_from_numpy(bj.src, bj.dst, bj.is_del, bj.valid, bj.w,
+                               bj.is_rew, device=CPU)
+
+
+def _assert_graph_equal(gt: tcoo.Graph, gj) -> None:
+    for got, want in zip(cv.graph_to_numpy(gt),
+                         (gj.src, gj.dst, gj.valid, gj.w, gj.n)):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def _assert_batch_equal(bt: tcoo.BatchUpdate, bj) -> None:
+    for got, want in zip(cv.batch_to_numpy(bt),
+                         (bj.src, bj.dst, bj.is_del, bj.valid, bj.w,
+                          bj.is_rew)):
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def _weighted_edges(n, extra, seed):
+    rng = np.random.default_rng(seed)
+    e = jgen.random_connected(n, extra_edges=extra, seed=seed)
+    return np.concatenate([e, rng.integers(1, 9, (len(e), 1))], 1)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_from_edges_and_make_batch(weighted):
+    edges = (_weighted_edges(20, 10, 1) if weighted
+             else jgen.random_connected(20, extra_edges=10, seed=1))
+    _assert_graph_equal(tcoo.from_edges(20, edges, 40, device=CPU),
+                        jcoo.from_edges(20, edges, 40))
+    ups = [(1, 2, jcoo.OP_INS, 3), (3, 4, True), (5, 6, jcoo.OP_REW, 7),
+           (7, 8, False)]
+    _assert_batch_equal(tcoo.make_batch(ups, pad_to=7, device=CPU),
+                        jcoo.make_batch(ups, pad_to=7))
+    with pytest.raises(tcoo.CapacityError):
+        tcoo.from_edges(20, edges, 3, device=CPU)
+
+
+def _mixed_cases():
+    """(n, edges, capacity, update rows, pad_to) for `apply_batch`."""
+    edges = _weighted_edges(16, 12, 3)
+    e = [tuple(map(int, r)) for r in edges]
+    ins = [(0, 15, jcoo.OP_INS, 5), (2, 13, jcoo.OP_INS, 2),
+           (4, 11, jcoo.OP_INS, 9)]
+    return [
+        # Mixed ops with an unmatched delete and an unmatched re-weight.
+        (16, edges, len(edges) + 8,
+         [(e[0][0], e[0][1], jcoo.OP_DEL), (e[1][1], e[1][0], jcoo.OP_DEL),
+          (14, 15, jcoo.OP_DEL), (e[2][0], e[2][1], jcoo.OP_REW, 6),
+          (1, 14, jcoo.OP_REW, 3)] + ins, 12),
+        # Two re-weights of one edge (the first row wins) and a re-weight
+        # of an edge the same batch deletes (gated on post-delete validity).
+        (16, edges, len(edges) + 4,
+         [(e[3][0], e[3][1], jcoo.OP_REW, 7), (e[3][1], e[3][0],
+                                                jcoo.OP_REW, 2),
+          (e[4][0], e[4][1], jcoo.OP_DEL), (e[4][0], e[4][1], jcoo.OP_REW, 5),
+          (e[5][0], e[5][1], jcoo.OP_DEL), (e[5][1], e[5][0], jcoo.OP_DEL)],
+         8),
+        # Deletions free slot pairs in the middle that the inserts reuse,
+        # with no spare capacity left at the end.
+        (16, edges, len(edges),
+         [(e[6][0], e[6][1], jcoo.OP_DEL), (e[9][0], e[9][1], jcoo.OP_DEL)]
+         + ins[:2], 6),
+        # Only padding rows.
+        (16, edges, len(edges) + 2, [], 4),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_apply_batch_and_seed_weights(case):
+    n, edges, cap, ups, pad = _mixed_cases()[case]
+    gj = jcoo.from_edges(n, edges, cap)
+    bj = jcoo.make_batch(ups, pad_to=pad)
+    gt, bt = _port_graph(gj), _port_batch(bj)
+    _assert_graph_equal(tcoo.apply_batch(gt, bt), jcoo.apply_batch(gj, bj))
+    _assert_batch_equal(tcoo.resolve_seed_weights(gt, bt),
+                        jcoo.resolve_seed_weights(gj, bj))
+
+
+def test_apply_batch_chain_reuses_freed_slots():
+    """Three ticks of random churn applied in turn stay slot-identical."""
+    n = 40
+    edges = jgen.random_connected(n, extra_edges=30, seed=5)
+    gj = jcoo.from_edges(n, edges, len(edges) + 6)
+    gt = _port_graph(gj)
+    cur = edges
+    for tick in range(3):
+        ups = jgen.random_batch_updates(cur, n, n_ins=5, n_del=5,
+                                        seed=tick, n_rew=3, max_weight=6)
+        bj = jcoo.make_batch(ups, pad_to=16)
+        gj = jcoo.apply_batch(gj, bj)
+        gt = tcoo.apply_batch(gt, _port_batch(bj))
+        _assert_graph_equal(gt, gj)
+        valid = np.asarray(gj.valid)[0::2]
+        cur = np.stack([np.asarray(gj.src)[0::2][valid],
+                        np.asarray(gj.dst)[0::2][valid]], 1)
+    assert tcoo.to_numpy_adj(gt) == jcoo.to_numpy_adj(gj)
+    assert tcoo.to_numpy_wadj(gt) == jcoo.to_numpy_wadj(gj)
+
+
+@pytest.mark.parametrize("planes", [None, 3])
+def test_masked_segment_min(planes):
+    rng = np.random.default_rng(2)
+    e, n, fill = 50, 12, 1000
+    shape = (e,) if planes is None else (planes, e)
+    data = rng.integers(0, 2000, shape).astype(np.int32)
+    seg = rng.integers(0, n, e).astype(np.int32)
+    mask = rng.random(shape) < 0.6
+    got = tseg.masked_segment_min(torch.from_numpy(data),
+                                  torch.from_numpy(seg), n,
+                                  torch.from_numpy(mask), fill)
+    one = lambda d, m: jseg.masked_segment_min(d, seg, n, m, fill)  # noqa
+    want = (one(data, mask) if planes is None
+            else np.stack([one(d, m) for d, m in zip(data, mask)]))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_generator_copy_matches_reference(seed):
+    e_t = tgen.barabasi_albert(300, 3, seed)
+    np.testing.assert_array_equal(e_t, jgen.barabasi_albert(300, 3, seed))
+    for kw in (dict(n_ins=6, n_del=6), dict(n_ins=4, n_del=2, n_rew=3,
+                                             max_weight=5)):
+        assert (tgen.random_batch_updates(e_t, 300, seed=seed, **kw)
+                == jgen.random_batch_updates(e_t, 300, seed=seed, **kw))

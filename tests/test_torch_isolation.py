@@ -1,0 +1,44 @@
+"""The port stands alone: no JAX, no `repro`, no silent CPU fallback."""
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def test_import_leaves_jax_and_repro_out():
+    code = ("import sys, repro_torch.api, repro_torch.convert; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'repro' "
+            "or m.startswith('repro.')]; print(bad)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_or_repro_import_in_source(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
+    assert not re.search(r"^\s*(from repro[ .]|import repro\b(?!_))", text,
+                         re.M)
+
+
+def test_build_without_device_raises_without_cuda():
+    from repro_torch import api
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the GPU")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.build(4, np.array([[0, 1], [1, 2]]), num_landmarks=1)
