@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, power limit), torch and CUDA versions, and
-   builds both CUDA kernels from `src/repro_torch/csrc/` with nvcc.
-2. Holds each kernel to its plain PyTorch version on the card
-   (`torch.equal`; every output is an integer, so no tolerance), over the
-   relax sweep's edge cases and the min-plus shapes.
+   builds every CUDA kernel in `build.SOURCES` (relax sweep, min-plus,
+   legacy edge relax, embedding bag) from `src/repro_torch/csrc/` with
+   nvcc, one process each, all at once.
+2. Holds each kernel to its plain PyTorch version on the card: the three
+   integer kernels with `torch.equal`, the embedding bag to rtol = atol =
+   1e-5 (float32 sums in another order), over each kernel's edge cases.
 3. Drives the port's main path through `repro_torch.api` at full size:
    Barabási–Albert(2^20, m=4, seed 0), capacity 2^23 edges, 32 landmarks;
    build; one mixed BHL⁺ tick of 512 inserts + 512 deletes; 1024 uniform
@@ -17,9 +19,24 @@
    against scipy BFS, 64 answers against scipy BFS, the update and one
    microbatch rerun on the COO reference (plan=None) equal the kernel
    path, and both kernels were launched in phase 3.
-5. Times each kernel at the main path's shapes with CUDA events, in turns
+3b. Runs the same tick again in the frontier mode (`RelaxEngine(
+   frontier=True)`, threshold 0.25, frontier blocks of 64) through
+   `api.update`, holds it bit for bit to phase 3's update, and reports
+   its masked and full waves per kind and the two host tilings' seconds;
+   then a trickle tick of 2 inserts + 2 deletes through the full sweep,
+   the frontier mode and the frontier mode at threshold 1.0 (every wave
+   masked), plans tiled beforehand, all three held equal.
+5. Times each kernel on its own path's shapes with CUDA events, in turns
    with its plain version, beside its bound (bytes over 3.35 TB/s, or
-   operations over 67 T/s, whichever is larger).
+   operations over 67 T/s, whichever is larger): the relax sweep and
+   min-plus at the main path's shapes; the legacy edge relax through
+   `ops.prepare` / `ops.edge_relax` on the post-update graph (also held
+   to the COO oracle `ref.edge_relax`); the embedding bag through
+   `ops.embed_bag` at the MIND config's widths (10,485,760 × 64 float32
+   table, bags of 50, batches of 512 and 65,536), beside
+   `torch.nn.functional.embedding_bag` as the library yardstick. Each of
+   those two entry points is its kernel's path: its count is set to 0
+   just before the call and read just after.
 6. Prints a `summary:` line with every number above as JSON, the
    `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
@@ -48,6 +65,15 @@ QUERIES = 1024
 MICROBATCH = 32
 MAX_STEPS = 64
 QUERY_BUDGET_S = 480.0   # past this many seconds, fewer query microbatches
+FRONTIER_BLOCK = 64
+FRONTIER_THRESHOLD = 0.25
+TRICKLE = 2   # inserts and deletes of the small frontier tick
+# The MIND config's widths (src/repro/configs/mind.py, configs/common.py).
+MIND_ITEMS = 10_485_760
+MIND_DIM = 64
+MIND_HIST = 50
+MIND_BATCHES = (512, 65_536)   # serve_p99, train_batch
+BAG_TOL = 1e-5
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 NONTENSOR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -86,6 +112,22 @@ def paired_ms(kernel_fn, plain_fn, reps: int, plain_reps: int):
     k2 = cuda_ms(kernel_fn, reps)
     p2 = cuda_ms(plain_fn, plain_reps)
     return min(k1, k2), min(p1, p2)
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels.edge_relax import kernel as rk
+    from repro_torch.kernels.embed_bag import kernel as ek
+    from repro_torch.kernels.minplus import kernel as mk
+    rk.launches = rk.launches_edge_relax = mk.launches = ek.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.edge_relax import kernel as rk
+    from repro_torch.kernels.embed_bag import kernel as ek
+    from repro_torch.kernels.minplus import kernel as mk
+    return {"relax_sweep": rk.launches, "minplus": mk.launches,
+            "edge_relax": rk.launches_edge_relax, "embed_bag": ek.launches}
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -183,7 +225,91 @@ def check_kernels_small(torch, np, dev) -> int:
         if not torch.equal(got, mk.minplus_plain(s, h, tt)):
             raise AssertionError(f"minplus != plain at B={b} P={p} R={r}")
         cases += 1
+    return cases + check_edge_relax_small(torch, np, dev, rng) \
+        + check_embed_bag_small(torch, np, dev, rng)
+
+
+def check_edge_relax_small(torch, np, dev, rng) -> int:
+    """Kernel C against its plain version, bit for bit."""
+    from repro_torch.kernels.edge_relax import kernel as rk
+    from repro_torch.kernels.edge_relax import ops as rops
+    cases = 0
+    n, m = 61, 240
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    valid = rng.random(m) < 0.8
+    keys = {
+        "small": rng.integers(0, 1 << 20, n),
+        "near INF32 and 2^31-1": np.where(
+            rng.random(n) < 0.5, 2**31 - 1 - rng.integers(0, 4, n),
+            (1 << 29) - rng.integers(0, 4, n)),
+    }
+    for be in (None, 7):
+        for shards in (1, 2):
+            for what, vmask in (("valid", valid),
+                                ("all-invalid", np.zeros(m, bool))):
+                bg = rops.prepare(src, dst, vmask, n, 16, shards, be,
+                                  device=dev)
+                for kname, k in keys.items():
+                    k = torch.from_numpy(k.astype(np.int32)).to(dev)
+                    for step in (1, 2, 4):
+                        args = (k, bg.src_t, bg.dstloc_t, bg.valid_t,
+                                bg.rowblk_t, step, n, bg.block_v, bg.nb)
+                        got = rk.edge_relax(*args)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, rk.edge_relax_plain(*args)):
+                            raise AssertionError(
+                                f"edge_relax != plain: block_e={be} "
+                                f"shards={shards} {what} keys={kname} "
+                                f"step={step}")
+                        cases += 1
     return cases
+
+
+def check_embed_bag_small(torch, np, dev, rng) -> int:
+    """Kernel D against its plain version, to rtol = atol = BAG_TOL."""
+    from repro_torch.kernels.embed_bag import kernel as ek
+    from repro_torch.kernels.embed_bag import ops as eops
+    cases = 0
+
+    def close(table, idx, w, what):
+        nonlocal cases
+        got = ek.embed_bag(table, idx, w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ek.embed_bag_plain(table, idx, w),
+                                   rtol=BAG_TOL, atol=BAG_TOL,
+                                   equal_nan=True, msg=f"embed_bag: {what}")
+        cases += 1
+
+    n, b = 500, 37
+    for d in (1, 8, 64, 100):
+        for bag in (1, 7, 50):
+            table = torch.from_numpy(
+                rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+            idx = torch.from_numpy(
+                rng.integers(0, n, (b, bag)).astype(np.int32)).to(dev)
+            w = torch.from_numpy(
+                rng.random((b, bag)).astype(np.float32)).to(dev)
+            close(table, idx, w, f"D={d} L={bag}")
+    n, d = 5, 8
+    table = torch.arange(n * d, dtype=torch.float32, device=dev).view(n, d)
+    idx = torch.tensor([[-1, 0], [n, 0], [-n, 1], [-n - 1, 2], [2, n + 3]],
+                       dtype=torch.int32, device=dev)
+    w = torch.tensor([[1.0, 0.5], [0.0, 1.0], [1.0, 1.0], [0.0, 1.0],
+                      [1.0, 0.0]], device=dev)
+    close(table, idx, w, "wrapped and NaN indices")
+    nan_rows = torch.isnan(ek.embed_bag(table, idx, w)).all(1).tolist()
+    if nan_rows != [False, True, False, True, True]:
+        raise AssertionError(f"embed_bag NaN rows {nan_rows}")
+    table = torch.from_numpy(rng.normal(size=(300, 64)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 300, (20, 9)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((20, 9)) < 0.6)
+    got = eops.embed_bag(table.to(dev), idx.to(dev), mask.to(dev), "mean")
+    torch.testing.assert_close(got.cpu(), eops.embed_bag(table, idx, mask,
+                                                         "mean"),
+                               rtol=BAG_TOL, atol=BAG_TOL,
+                               msg="ops.embed_bag mean with a mask")
+    return cases + 1
 
 
 # --- phase 4 helpers: the scipy oracle --------------------------------------
@@ -202,6 +328,231 @@ def bfs_dist(csr, sources, np, inf_d):
     d = shortest_path(csr, method="D", unweighted=True, directed=True,
                       indices=np.asarray(sources))
     return np.where(np.isinf(d), inf_d, d).astype(np.int64)
+
+
+# --- phase 3b: the frontier update ---------------------------------------------
+
+def timed_update(torch, engine, g0, lab0, batch):
+    """api.update through `engine` with the launch and wave counts set to
+    0 just before: ((g, lab, aff), seconds, waves, launches)."""
+    from repro_torch import api
+    from repro_torch.core import engine as teng
+    reset_launches()
+    teng.WAVES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = api.update(g0, lab0, batch, engine=engine)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(teng.WAVES), read_launches()
+
+
+def assert_same_update(torch, got, want, what: str) -> None:
+    (g, lab, aff), (g2, lab2, aff2) = got, want
+    for name, a, b in (("src", g.src, g2.src), ("dst", g.dst, g2.dst),
+                       ("valid", g.valid, g2.valid), ("w", g.w, g2.w),
+                       ("dist", lab.dist, lab2.dist),
+                       ("hub", lab.hub, lab2.hub),
+                       ("highway", lab.highway, lab2.highway),
+                       ("aff", aff, aff2)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: frontier update != full sweep "
+                                 f"on {name}")
+
+
+def wave_kinds(waves: dict) -> dict:
+    out = {}
+    for k in ("search_improved", "repair_base", "repair"):
+        total, masked = waves.get(k, 0), waves.get(k + ".masked", 0)
+        out[k] = dict(all=total, masked=masked, full=total - masked)
+    return out
+
+
+def run_frontier_update(torch, dev, g0, lab0, batch, full, trickle) -> dict:
+    """The phase-3 tick through a frontier engine, held to `full`; then
+    the small tick `trickle` through a full-sweep and a frontier engine,
+    held to each other."""
+    from repro_torch import api
+    from repro_torch.core import engine as teng
+    from repro_torch.graphs import coo
+    from repro_torch.kernels.edge_relax import ops as rops
+
+    def engine(frontier, threshold=FRONTIER_THRESHOLD):
+        return teng.RelaxEngine(block_v=api.BLOCK_V, block_e=api.BLOCK_E,
+                                frontier=frontier,
+                                frontier_threshold=threshold,
+                                frontier_block=FRONTIER_BLOCK, device=dev)
+
+    fr = engine(True)
+    got, wall, waves, launches = timed_update(torch, fr, g0, lab0, batch)
+    assert_same_update(torch, got, full, "phase-3 tick")
+    if launches["relax_sweep"] <= 0:
+        raise AssertionError("the frontier update launched no relax sweep")
+    # Again with the plan cached: the waves and the per-tick bookkeeping
+    # without the two host tilings.
+    again, warm, _, _ = timed_update(torch, fr, g0, lab0, batch)
+    assert_same_update(torch, again, full, "phase-3 tick, plan cached")
+    del again
+    ft = fr.prepare(got[0], topology_changed=False).frontier
+    src, dst = got[0].src.cpu().numpy(), got[0].dst.cpu().numpy()
+    keep = got[0].valid.cpu().numpy()
+    t0 = time.perf_counter()
+    rops.prepare_topology(src, dst, keep, g0.n, api.BLOCK_V, 1, api.BLOCK_E,
+                          device=dev)
+    torch.cuda.synchronize()
+    topo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rops.prepare_frontier(src, dst, keep, g0.n, FRONTIER_BLOCK,
+                          threshold=FRONTIER_THRESHOLD, device=dev)
+    torch.cuda.synchronize()
+    frontier_s = time.perf_counter() - t0
+    out = dict(update_s=wall, update_cached_plan_s=warm,
+               waves=wave_kinds(waves), launches=launches,
+               nrows=ft.nrows, rows_cap=ft.rows_cap, nbf=ft.nbf,
+               row_slots=ft.src_r.numel(), prepare_topology_s=topo_s,
+               prepare_frontier_s=frontier_s)
+    log(f"phase 3b: frontier update (threshold {FRONTIER_THRESHOLD}, "
+        f"blocks of {FRONTIER_BLOCK}) {wall:.3f} s ({warm:.3f} s with the "
+        f"plan cached) == full-sweep update on "
+        f"slots, labelling and aff; waves {out['waves']}; launches "
+        f"{launches}; {ft.nrows} rows ({ft.nbf} blocks), rows_cap "
+        f"{ft.rows_cap}; host prepare: topology {topo_s:.3f} s, frontier "
+        f"{frontier_s:.3f} s")
+
+    # The trickle tick through three engines, each plan tiled before the
+    # timed update: full sweep, the frontier mode, and the frontier mode
+    # at threshold 1.0 (every wave masked).
+    g_new = coo.apply_batch(g0, trickle)
+    out["trickle"] = dict(rows=int(trickle.valid.sum()))
+    want = None
+    for name, eng in (("full", engine(False)), ("frontier", fr),
+                      ("masked", engine(True, 1.0))):
+        eng.prepare(g_new)
+        got, secs, waves, launches = timed_update(torch, eng, g0, lab0,
+                                                  trickle)
+        if want is None:
+            want = got
+        else:
+            assert_same_update(torch, got, want, f"trickle tick ({name})")
+        out["trickle"][name] = dict(update_s=secs, waves=wave_kinds(waves),
+                                    launches=launches)
+        log(f"phase 3b trickle ({out['trickle']['rows']} updates, {name}, "
+            f"plan cached): {secs:.3f} s, waves {wave_kinds(waves)}, "
+            f"launches {launches}")
+    if any(k["full"] for k in out["trickle"]["masked"]["waves"].values()):
+        raise AssertionError("threshold 1.0 ran a full wave")
+    return out
+
+
+# --- phase 5: kernels C and D on their own paths --------------------------------
+
+def time_edge_relax(torch, dev, g1, lab1) -> dict:
+    """Kernel C through `ops.prepare` / `ops.edge_relax` on the
+    post-update graph, one plane, step 1."""
+    from repro_torch import api
+    from repro_torch.kernels.edge_relax import kernel as rk
+    from repro_torch.kernels.edge_relax import ops as rops
+    from repro_torch.kernels.edge_relax import ref as rref
+
+    t0 = time.perf_counter()
+    bg = rops.prepare(g1.src.cpu().numpy(), g1.dst.cpu().numpy(),
+                      g1.valid.cpu().numpy(), g1.n, api.BLOCK_V, 1,
+                      api.BLOCK_E, device=dev)
+    prep_s = time.perf_counter() - t0
+    keys = lab1.dist[0].contiguous()
+    reset_launches()
+    got = rops.edge_relax(keys, bg, 1)
+    torch.cuda.synchronize()
+    launches = read_launches()["edge_relax"]
+    if launches != 1:
+        raise AssertionError(f"ops.edge_relax launched {launches} kernels")
+    args = (keys, bg.src_t, bg.dstloc_t, bg.valid_t, bg.rowblk_t, 1, g1.n,
+            bg.block_v, bg.nb)
+    want = rk.edge_relax_plain(*args)
+    coo = rref.edge_relax(keys, g1.src, g1.dst, g1.valid, 1, g1.n)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err != 0 or not torch.equal(got, coo):
+        raise AssertionError("edge_relax at full size != plain / COO oracle")
+    ms, plain = paired_ms(lambda: rk.edge_relax(*args),
+                          lambda: rk.edge_relax_plain(*args), 10, 3)
+    rows = bg.rowblk_t.numel()
+    live = int((bg.valid_t != 0).sum())
+    # What this run's data needs: valid_t of every slot, src and local dst
+    # of the valid ones, rowblk, keys once and out once.
+    nbytes = bg.slots * 4 + live * 8 + rows * 4 + 2 * g1.n * 4
+    bms, by = bound_ms(nbytes, 3 * live)   # add, saturate, min per slot
+    row = dict(rows=rows, slots=bg.slots, valid_slots=live,
+               prepare_s=prep_s, launches=launches, max_abs_err=err, ms=ms,
+               plain_ms=plain, bound_ms=bms, bound_by=by, bytes=nbytes)
+    log(f"edge_relax (ops.prepare of every slot, block_v={api.BLOCK_V} "
+        f"block_e={api.BLOCK_E}): {rows} rows, {bg.slots} slots "
+        f"({live} valid), host prepare {prep_s:.3f} s; kernel {ms:.3f} ms, "
+        f"plain {plain:.3f} ms, bound {bms:.4f} ms ({by}), max_abs_err {err}"
+        f"; == COO oracle")
+    return row
+
+
+def time_embed_bag(torch, dev) -> list:
+    """Kernel D through `ops.embed_bag` (mean, ~80 % mask) at the MIND
+    config's widths, beside `F.embedding_bag` on the same weights."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.embed_bag import kernel as ek
+    from repro_torch.kernels.embed_bag import ops as eops
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn(MIND_ITEMS, MIND_DIM, generator=gen, device=dev)
+    rows = []
+    for b in MIND_BATCHES:
+        idx = torch.randint(0, MIND_ITEMS, (b, MIND_HIST), generator=gen,
+                            device=dev, dtype=torch.int32)
+        mask = torch.rand(b, MIND_HIST, generator=gen, device=dev) < 0.8
+        reset_launches()
+        got = eops.embed_bag(table, idx, mask, mode="mean")
+        torch.cuda.synchronize()
+        launches = read_launches()["embed_bag"]
+        if launches != 1:
+            raise AssertionError(f"ops.embed_bag launched {launches} kernels")
+        # The weights and indices ops.embed_bag hands the kernel.
+        w = mask.to(torch.float32)
+        w = w / w.sum(1, keepdim=True).clamp_min(1.0)
+        idx_m = torch.where(mask, idx, 0)
+        idx64 = idx_m.long()
+        want = ek.embed_bag_plain(table, idx_m, w)
+        lib = F.embedding_bag(idx64, table, per_sample_weights=w, mode="sum")
+        torch.cuda.synchronize()
+        if not torch.equal(got, ek.embed_bag(table, idx_m, w)):
+            raise AssertionError("ops.embed_bag != the kernel on its weights")
+        for what, ref in (("plain", want), ("F.embedding_bag", lib)):
+            torch.testing.assert_close(got, ref, rtol=BAG_TOL, atol=BAG_TOL,
+                                       msg=f"embed_bag B={b} != {what}")
+        err = float((got - want).abs().max())
+        reps = 50 if b <= 512 else 10
+        ms, plain = paired_ms(lambda: ek.embed_bag(table, idx_m, w),
+                              lambda: ek.embed_bag_plain(table, idx_m, w),
+                              reps, 3)
+        lib_ms = min(cuda_ms(lambda: F.embedding_bag(
+            idx64, table, per_sample_weights=w, mode="sum"), reps)
+            for _ in range(2))
+        # What this run's data needs: each distinct gathered row once,
+        # idx and w of every slot, out once. (Every slot's row, the
+        # count with repeats, would be B·L·4·D.)
+        distinct = int(torch.unique(idx_m).numel())
+        nbytes = (distinct * 4 * MIND_DIM + b * MIND_HIST * 8
+                  + 4 * b * MIND_DIM)
+        bms, by = bound_ms(nbytes, 2 * b * MIND_HIST * MIND_DIM)
+        rows.append(dict(batch=b, launches=launches, max_abs_err=err, ms=ms,
+                         plain_ms=plain, library_ms=lib_ms, bound_ms=bms,
+                         bound_by=by, bytes=nbytes, distinct_rows=distinct,
+                         bytes_every_slot=b * MIND_HIST * (4 * MIND_DIM + 8)
+                         + 4 * b * MIND_DIM,
+                         lib_max_abs_err=float((got - lib).abs().max())))
+        log(f"embed_bag B={b} L={MIND_HIST} D={MIND_DIM} (table "
+            f"{MIND_ITEMS} rows, {distinct} distinct gathered): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"F.embedding_bag {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"max_abs_err {err:.3g} (vs library "
+            f"{rows[-1]['lib_max_abs_err']:.3g})")
+    del table
+    return rows
 
 
 def main() -> int:
@@ -256,8 +607,7 @@ def main() -> int:
     qt = rng.integers(0, N, QUERIES).astype(np.int32)
 
     torch.cuda.reset_peak_memory_stats()
-    rk.launches = 0
-    mk.launches = 0
+    reset_launches()
     teng.WAVES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -295,7 +645,8 @@ def main() -> int:
         mb_ms.append((time.perf_counter() - t0) * 1e3)
     answers = torch.cat(answers)
     bibfs_waves = teng.WAVES["bibfs"]
-    launches = {"relax_sweep": rk.launches, "minplus": mk.launches}
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("relax_sweep", "minplus")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     q_sorted = sorted(mb_ms)
     log(f"queries: {len(answers)} in {len(mb_ms)} microbatches of "
@@ -345,6 +696,13 @@ def main() -> int:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     log(f"phase 4d: launches on the main path {launches}")
+
+    # --- 3b. the same tick in the frontier mode ------------------------------
+    trickle = coo.make_batch(gen.random_batch_updates(
+        edges, N, n_ins=TRICKLE, n_del=TRICKLE, seed=3), pad_to=2 * TRICKLE,
+        device=dev)
+    frontier = run_frontier_update(torch, dev, g0, lab0, batch,
+                                   (g1, lab1, aff1), trickle)
 
     # --- 5. timings at the main path's shapes -----------------------------------
     eng = teng.RelaxEngine(block_v=api.BLOCK_V, block_e=api.BLOCK_E,
@@ -424,6 +782,9 @@ def main() -> int:
         log(f"minplus B={b} R={r}: kernel {ms:.4f} ms, plain {plain:.4f} ms,"
             f" bound {bms:.6f} ms ({by}), max_abs_err {err}")
 
+    er_row = time_edge_relax(torch, dev, g1, lab1)
+    bag_rows = time_embed_bag(torch, dev)
+
     # --- 6. the kernels line and the summary --------------------------------------
     key2_row = sweep_rows[2]
     kernels = [
@@ -443,6 +804,22 @@ def main() -> int:
              ms=mp_rows[1]["ms"], plain_ms=mp_rows[1]["plain_ms"],
              bound_ms=mp_rows[1]["bound_ms"], bound_by=mp_rows[1]["bound_by"],
              library_ms=None),
+        dict(name="edge_relax", route="cuda",
+             source="src/repro_torch/csrc/edge_relax.cu",
+             replaces="src/repro/kernels/edge_relax/kernel.py:52",
+             launches=er_row["launches"], max_abs_err=er_row["max_abs_err"],
+             ms=er_row["ms"], plain_ms=er_row["plain_ms"],
+             bound_ms=er_row["bound_ms"], bound_by=er_row["bound_by"],
+             library_ms=None),
+        dict(name="embed_bag", route="cuda",
+             source="src/repro_torch/csrc/embed_bag.cu",
+             replaces="src/repro/kernels/embed_bag/kernel.py:29",
+             launches=bag_rows[-1]["launches"],
+             max_abs_err=max(r["max_abs_err"] for r in bag_rows),
+             ms=bag_rows[-1]["ms"], plain_ms=bag_rows[-1]["plain_ms"],
+             bound_ms=bag_rows[-1]["bound_ms"],
+             bound_by=bag_rows[-1]["bound_by"],
+             library_ms=bag_rows[-1]["library_ms"]),
     ]
     summary = dict(card=card, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s,
@@ -454,6 +831,7 @@ def main() -> int:
                    tile_rows=nr, tile_slots=bg.slots,
                    unchunked_slots=unchunked, prepare_s=prep_s,
                    relax_sweep=sweep_rows, minplus=mp_rows,
+                   frontier=frontier, edge_relax=er_row, embed_bag=bag_rows,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")
     log("summary: " + json.dumps(summary))

@@ -1,11 +1,13 @@
 """BatchHL: batch search (Algorithms 2 & 3) and batch repair (Algorithm 4).
 
-The port of `repro.core.batch`, full-sweep mode. The paper's priority-
-queue searches are monotone fixpoints of relaxation sweeps (DESIGN.md §2);
-all landmark planes run together on the plane axis of each sweep, where
-the reference vmaps one plane per sweep. Pass a `RelaxPlan` (from
-`RelaxEngine.prepare` on the post-update snapshot) to run the tiled
-kernel; `plan=None` runs the COO reference. Both give the same planes.
+The port of `repro.core.batch`. The paper's priority-queue searches are
+monotone fixpoints of relaxation sweeps (DESIGN.md §2); all landmark
+planes run together on the plane axis of each sweep, where the reference
+vmaps one plane per sweep. Pass a `RelaxPlan` (from `RelaxEngine.prepare`
+on the post-update snapshot) to run the tiled kernel; `plan=None` runs
+the COO reference. Both give the same planes. A plan that carries
+`FrontierTiles` runs search and repair in the frontier mode (below), with
+the same planes again.
 
 Variants (paper §7 naming):
   BHL   = basic batch search (Algo 2) + batch repair (Algo 4)
@@ -15,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.engine import RelaxPlan, fixpoint, relax_sweep
+from repro_torch.core.engine import (MAX_WAVES, WAVES, RelaxPlan, fixpoint,
+                                     gather_rows, relax_rows, relax_sweep)
 from repro_torch.core.labelling import (
     HighwayLabelling, INF_KEY2, INF_KEY4, key2_dist, key2_hub, key2_make,
     key4_beta, key4_extend, key4_from_key2, per_plane_hub_mask,
@@ -44,6 +47,95 @@ def _scatter_min_planes(anchor: torch.Tensor, vals: torch.Tensor, n: int,
     plane = torch.full((vals.shape[0], n), fill, dtype=torch.int32,
                        device=vals.device)
     return plane.scatter_reduce_(1, anchor.to(torch.int64), vals, "amin")
+
+
+# ---------------------------------------------------------------------------
+# Frontier-proportional waves (change propagation, DESIGN.md §10)
+# ---------------------------------------------------------------------------
+#
+# Every fixpoint here is a monotone Bellman-Ford iteration, so a vertex can
+# improve at wave k only through an edge whose source changed at wave k-1
+# (the acceptance bounds do not change from wave to wave). Relaxing only
+# the tile rows one block-hop ahead of the changed blocks is therefore
+# exact: the masked wave gives the full sweep's planes bit for bit. When
+# those rows number more than the plan's `rows_cap`, the wave is the full
+# sweep instead, and the frontier is still tracked, so later sparse waves
+# go back to masked. The reference gathers a static `rows_cap` rows padded
+# with a sentinel; here a masked wave gathers exactly the active rows, and
+# the choice between masked and full is the reference's `count <=
+# rows_cap`.
+
+def frontier_active_rows(plan: RelaxPlan, front: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(active-row flags [NR], count) one propagation hop ahead of the
+    changed-block bitmap `front` [P, NBf]."""
+    ft = plan.frontier
+    rows = ft.active_rows(ft.propagate(front.any(0)))
+    return rows, rows.sum()
+
+
+def _frontier_fixpoint(kind: str, plan: RelaxPlan, g: Graph, full_step,
+                       masked_step, init: torch.Tensor,
+                       front0: torch.Tensor) -> torch.Tensor:
+    """Iterate frontier waves until the changed-block frontier empties.
+
+    `full_step(x)` is the whole-plane wave; `masked_step(x, rows_g)` the
+    same wave over the gathered rows (`engine.gather_rows`). One host sync
+    per wave brings back both whether the frontier is empty and how many
+    rows it activates.
+    """
+    ft = plan.frontier
+    x, front = init, front0
+    for _ in range(MAX_WAVES):
+        rows, count = frontier_active_rows(plan, front)
+        live, count = torch.stack([front.any().to(count.dtype),
+                                   count]).tolist()
+        if not live:
+            break
+        WAVES[kind] += 1
+        if count <= ft.rows_cap:
+            WAVES[kind + ".masked"] += 1
+            ridx = rows.nonzero().squeeze(1)
+            nx = masked_step(x, gather_rows(plan, g, ridx))
+        else:
+            nx = full_step(x)
+        front = ft.changed_blocks(nx != x)
+        x = nx
+    return x
+
+
+def search_step_rows(rows_g, best: torch.Tensor, bound_g: torch.Tensor,
+                     hub_mask: torch.Tensor | None, *,
+                     improved: bool) -> torch.Tensor:
+    """Masked twin of `search_{basic,improved}_step` over gathered rows.
+
+    The full step's trailing `min(·, seed)` is dropped: the fixpoint
+    starts at `best = seed` and only decreases, so the seed term changes
+    nothing. The acceptance filter moves per slot, via
+    `relax_rows(bound=...)`.
+    """
+    src_g, dstg, valid_g, w_g = rows_g
+    if improved:
+        return relax_rows(best, best, src_g, dstg, valid_g, w_g, 4,
+                          INF_KEY4, hub=hub_mask, clear_bit=2, bound=bound_g)
+    return relax_rows(best, best, src_g, dstg, valid_g, w_g, 1, INF_D,
+                      bound=bound_g)
+
+
+def repair_step_rows(rows_g, cur: torch.Tensor, aff: torch.Tensor,
+                     hub_mask: torch.Tensor) -> torch.Tensor:
+    """Masked twin of `repair_step`: interior relaxation over the rows."""
+    src_g, dstg, valid_g, w_g = rows_g
+    emask = valid_g & aff[:, src_g] & aff[:, dstg]            # [P, K, BE]
+    return relax_rows(cur, cur, src_g, dstg, emask, w_g, 2, INF_KEY2,
+                      hub=hub_mask, clear_bit=1)
+
+
+def use_frontier(plan: RelaxPlan | None, g: Graph) -> bool:
+    """The plan carries the frontier tiling and the graph has edge slots
+    (a zero-capacity snapshot has nothing to gather)."""
+    return (plan is not None and plan.frontier is not None
+            and g.src.shape[0] > 0)
 
 
 # ---------------------------------------------------------------------------
@@ -84,9 +176,17 @@ def search_basic_planes(g_new: Graph, batch: BatchUpdate,
                         plan: RelaxPlan | None = None) -> torch.Tensor:
     """Algo-2 search over a plane slice `dist_g` [P, V]; returns aff."""
     seed, seeded = search_basic_seed(g_new, batch, dist_g)
-    best = fixpoint(
-        "search_basic",
-        lambda b: search_basic_step(plan, g_new, b, seed, dist_g), seed)
+
+    def full(b):
+        return search_basic_step(plan, g_new, b, seed, dist_g)
+    if use_frontier(plan, g_new):
+        best = _frontier_fixpoint(
+            "search_basic", plan, g_new, full,
+            lambda b, rows_g: search_step_rows(rows_g, b, dist_g, None,
+                                               improved=False),
+            seed, plan.frontier.changed_blocks(seeded))
+    else:
+        best = fixpoint("search_basic", full, seed)
     return seeded | (best < INF_D)
 
 
@@ -146,10 +246,17 @@ def search_improved_planes(g_new: Graph, batch: BatchUpdate,
     """Algo-3 search over a plane slice (dist/hub/hub_mask [P, V])."""
     seed, seeded, beta = search_improved_seed(g_new, batch, dist_g, hub_g,
                                               hub_mask)
-    best = fixpoint(
-        "search_improved",
-        lambda b: search_improved_step(plan, g_new, b, seed, beta, hub_mask),
-        seed)
+
+    def full(b):
+        return search_improved_step(plan, g_new, b, seed, beta, hub_mask)
+    if use_frontier(plan, g_new):
+        best = _frontier_fixpoint(
+            "search_improved", plan, g_new, full,
+            lambda b, rows_g: search_step_rows(rows_g, b, beta, hub_mask,
+                                               improved=True),
+            seed, plan.frontier.changed_blocks(seeded))
+    else:
+        best = fixpoint("search_improved", full, seed)
     return seeded | (best < INF_KEY4)
 
 
@@ -180,6 +287,29 @@ def repair_base(plan: RelaxPlan | None, g_new: Graph, aff: torch.Tensor,
     bou_mask = g_new.valid & ~src_aff & dst_aff
     base = relax_sweep(plan, g_new, key2_g, 2, INF_KEY2, hub=hub_mask,
                        clear_bit=1, edge_mask=bou_mask)
+    return torch.where(aff, base, INF_KEY2)
+
+
+def repair_base_frontier(plan: RelaxPlan, g_new: Graph, aff: torch.Tensor,
+                         key2_g: torch.Tensor, hub_mask: torch.Tensor
+                         ) -> torch.Tensor:
+    """Masked `repair_base`: one sweep over the affected sets' blocks.
+
+    Boundary edges end on affected vertices, so the rows of the blocks
+    that hold *any* plane's affected vertices cover every boundary edge
+    of every plane, with no propagation hop. The full sweep runs instead
+    when those rows outgrow the row budget.
+    """
+    ft = plan.frontier
+    rows = ft.active_rows(ft.changed_blocks(aff.any(0)))
+    if int(rows.sum().item()) > ft.rows_cap:
+        return repair_base(plan, g_new, aff, key2_g, hub_mask)
+    WAVES["repair_base.masked"] += 1
+    src_g, dstg, valid_g, w_g = gather_rows(plan, g_new,
+                                            rows.nonzero().squeeze(1))
+    emask = valid_g & ~aff[:, src_g] & aff[:, dstg]
+    base = relax_rows(key2_g, torch.full_like(key2_g, INF_KEY2), src_g, dstg,
+                      emask, w_g, 2, INF_KEY2, hub=hub_mask, clear_bit=1)
     return torch.where(aff, base, INF_KEY2)
 
 
@@ -215,13 +345,23 @@ def repair_planes(g_new: Graph, aff: torch.Tensor, key2_g: torch.Tensor,
     relaxation fixpoint: identical final values by Lemma 5.20 and
     monotonicity.
     """
-    base = repair_base(plan, g_new, aff, key2_g, hub_mask)
+    frontier = use_frontier(plan, g_new)
+    base = (repair_base_frontier if frontier else repair_base)(
+        plan, g_new, aff, key2_g, hub_mask)
+    WAVES["repair_base"] += 1
     src_aff, dst_aff = _edge_ends(g_new, aff)
     int_mask = g_new.valid & src_aff & dst_aff
     del src_aff, dst_aff
-    settled = fixpoint(
-        "repair",
-        lambda c: repair_step(plan, g_new, c, aff, hub_mask, int_mask), base)
+
+    def full(c):
+        return repair_step(plan, g_new, c, aff, hub_mask, int_mask)
+    if frontier:
+        settled = _frontier_fixpoint(
+            "repair", plan, g_new, full,
+            lambda c, rows_g: repair_step_rows(rows_g, c, aff, hub_mask),
+            base, plan.frontier.changed_blocks(base < INF_KEY2))
+    else:
+        settled = fixpoint("repair", full, base)
     return repair_merge(aff, settled, key2_g)
 
 

@@ -18,6 +18,12 @@ The reference's `lax.while_loop` fixpoints become host loops with one
 `.item()` convergence check per wave. `WAVES` counts the waves of each
 fixpoint kind, so a caller can report them (and a later change can price
 the host syncs): set it to zero, run, read.
+
+A plan may also carry `FrontierTiles` (`RelaxEngine(frontier=True)`): the
+batch search and repair of `core/batch.py` then relax, wave by wave, only
+the tile rows one block-hop ahead of the blocks that changed, through
+`gather_rows` and `relax_rows` below, and fall back to the full sweep
+when those rows outgrow the plan's budget.
 """
 from __future__ import annotations
 
@@ -31,19 +37,23 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs.coo import Graph
 from repro_torch.graphs.segment import masked_segment_min
 from repro_torch.kernels.edge_relax import ops as er_ops
-from repro_torch.kernels.edge_relax.ops import BlockedGraph
+from repro_torch.kernels.edge_relax.ops import BlockedGraph, FrontierTiles
 
-#: Waves run per fixpoint kind ("construct", "search_basic",
-#: "search_improved", "repair", "bibfs") since the last `WAVES.clear()`.
+#: Waves run per kind ("construct", "search_basic", "search_improved",
+#: "repair_base", "repair", "bibfs") since the last `WAVES.clear()`. In
+#: the frontier mode `kind` still counts every wave, and `kind + ".masked"`
+#: counts those that relaxed only the frontier's rows.
 WAVES: collections.Counter = collections.Counter()
 
-_MAX_WAVES_CAP = 1 << 20  # safety valve; loops exit on fixpoint far earlier
+MAX_WAVES = 1 << 20  # safety valve; loops exit on fixpoint far earlier
 
 
 @dataclasses.dataclass(frozen=True)
 class RelaxPlan:
-    """How to run sweeps on one graph snapshot: its prepared tiling."""
+    """How to run sweeps on one graph snapshot: its prepared tiling, and
+    the frontier mode's row tiling when the engine has that mode on."""
     tiles: BlockedGraph
+    frontier: FrontierTiles | None = None
 
 
 def relax_sweep(plan: RelaxPlan | None, g: Graph, keys: torch.Tensor,
@@ -69,8 +79,45 @@ def relax_sweep(plan: RelaxPlan | None, g: Graph, keys: torch.Tensor,
                               clear_bit=clear_bit, hub=hub)
 
 
+def gather_rows(plan: RelaxPlan, g: Graph, ridx: torch.Tensor):
+    """The masked wave's rows `ridx` of `plan.frontier`, shared by every
+    plane: (src, global dst, valid, w), each [K, BE]. `valid` is tile
+    occupancy and current edge validity, read through the stored slot
+    permutation as the kernel tiling does."""
+    src_g, dstg, perm_g, slot_g = plan.frontier.gather(ridx)
+    perm_g = perm_g.to(torch.int64)
+    valid_g = slot_g & g.valid[perm_g]
+    w_g = torch.where(slot_g, g.w[perm_g], 0)
+    return src_g.to(torch.int64), dstg.to(torch.int64), valid_g, w_g
+
+
+def relax_rows(keys: torch.Tensor, out: torch.Tensor, src_g: torch.Tensor,
+               dstg: torch.Tensor, emask_g: torch.Tensor, w_g: torch.Tensor,
+               step: int, inf: int, *, hub: torch.Tensor | None = None,
+               clear_bit: int = 0, bound: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """One masked wave of all planes: scatter-min the candidates of the
+    gathered rows into a copy of `out` [P, V].
+
+    The extend and hub-clear of `relax_sweep`, restricted to the rows.
+    keys, hub and bound are [P, V]; the row arrays [K, BE], and emask_g
+    [K, BE] or [P, K, BE]. Masked-off slots give `inf`, a no-op in the
+    min. `bound` applies the acceptance filter `cand <= bound[dst]` per
+    slot: the masked wave never forms the per-destination min first.
+    """
+    cand = sat_add(keys[:, src_g], step * w_g, inf)           # [P, K, BE]
+    if hub is not None and clear_bit:
+        cand = torch.where(hub[:, dstg], cand & ~clear_bit, cand)
+    if bound is not None:
+        cand = torch.where(cand <= bound[:, dstg], cand, inf)
+    cand = torch.where(emask_g, cand, inf)
+    p = keys.shape[0]
+    return out.scatter_reduce(1, dstg.reshape(1, -1).expand(p, -1),
+                              cand.reshape(p, -1), "amin")
+
+
 def fixpoint(kind: str, body_fn, init: torch.Tensor,
-             limit: int = _MAX_WAVES_CAP) -> torch.Tensor:
+             limit: int = MAX_WAVES) -> torch.Tensor:
     """Iterate x <- body_fn(x) (monotone, elementwise) until unchanged, at
     most `limit` waves.
 
@@ -99,6 +146,12 @@ class RelaxEngine:
               the largest block — on power-law graphs that is most of the
               tile (see `kernel.block_edges_topology`). Every value gives
               bit-identical sweeps.
+    frontier: plans also carry the frontier mode's row tiling (blocks of
+              `frontier_block` vertices, masked waves while the active
+              rows fit in `frontier_threshold` of them), so batch search
+              and repair relax only what the batch's footprint reaches.
+              The answers are the same; off by default, as in the
+              reference's serving loop.
     device:   where plans live; None is the GPU (raises without one).
     """
 
@@ -108,10 +161,15 @@ class RelaxEngine:
     CACHE_PLANS = 2
 
     def __init__(self, block_v: int = 512, block_e: int | None = None, *,
+                 frontier: bool = False, frontier_threshold: float = 0.25,
+                 frontier_block: int = 64,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
         self.block_v = block_v
         self.block_e = block_e
+        self.frontier = frontier
+        self.frontier_threshold = frontier_threshold
+        self.frontier_block = frontier_block
         self._plan: RelaxPlan | None = None
         self._fingerprint: tuple | None = None
         self._plans: dict[tuple, RelaxPlan] = {}  # fingerprint-keyed LRU
@@ -168,18 +226,25 @@ class RelaxEngine:
                 return self._plan
             self.stale_cache_retiles += 1
         fp = self.snapshot_fingerprint(g)
-        plan = self._plans.pop(fp, None)
+        key = fp + (("frontier", self.frontier_block, self.frontier_threshold)
+                    if self.frontier else ())
+        plan = self._plans.pop(key, None)
         if plan is None:
             # Host sync: pull the slot arrays once per topology change and
             # tile only the occupied slots.
+            src, dst = g.src.cpu().numpy(), g.dst.cpu().numpy()
+            keep = g.valid.cpu().numpy()
+            ft = (er_ops.prepare_frontier(
+                      src, dst, keep, g.n, self.frontier_block,
+                      threshold=self.frontier_threshold, device=self.device)
+                  if self.frontier else None)
             plan = RelaxPlan(er_ops.prepare_topology(
-                g.src.cpu().numpy(), g.dst.cpu().numpy(),
-                g.valid.cpu().numpy(), g.n, self.block_v, 1, self.block_e,
-                device=self.device))
+                src, dst, keep, g.n, self.block_v, 1, self.block_e,
+                device=self.device), ft)
             self.retile_count += 1
         else:
             self.plan_cache_hits += 1
-        self._plans[fp] = plan  # (re)insert as most-recently used
+        self._plans[key] = plan  # (re)insert as most-recently used
         while len(self._plans) > self.CACHE_PLANS:
             self._plans.pop(next(iter(self._plans)))
         self._plan, self._fingerprint = plan, fp

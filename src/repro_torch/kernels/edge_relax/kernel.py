@@ -18,6 +18,17 @@ raises. They replace the Pallas `_relax_sweep_kernel` and its row fold
 `_reduce_rows` in `repro/kernels/edge_relax/kernel.py`, where each plane
 is one vmapped `pallas_call`.
 
+`edge_relax` is the legacy sweep of one plane with its validity baked
+into the tiles at prepare time (`ops.prepare`) and no weight or hub:
+
+    out[v] = min over tile slots e with dst v and valid_t[e] != 0 of
+             sat(keys[src[e]] + step),   INF32 = 2^29 where none
+
+where sat maps a negative (wrapped) int32 sum to INF32 and clamps at
+INF32. It launches `csrc/edge_relax.cu` for CUDA tensors and runs
+`edge_relax_plain` for CPU tensors, replacing the Pallas `_relax_kernel`
+(and its `_reduce_rows` fold) of the same reference module.
+
 The host tiling below (`block_edges_topology`, `aligned_vertex_count`,
 `shard_tiling`) is numpy, copied from the reference so that both packages
 tile a graph identically: edge slots grouped by destination block of
@@ -38,9 +49,13 @@ from repro_torch.kernels import build
 
 MAX_SHARED_BYTES = 48 * 1024  # the [block_v] tile is static-limit shared
 
+INF32 = 1 << 29  # the legacy sweep's infinity, fixed as in the reference
+
 #: Kernel launches since the count was last set to 0 (the CPU path and
 #: `relax_sweep_plain` do not count).
 launches = 0
+#: The same count for the legacy `edge_relax` kernel.
+launches_edge_relax = 0
 
 
 def block_edges_topology(src: np.ndarray, dst: np.ndarray, keep: np.ndarray,
@@ -149,14 +164,13 @@ def shard_tiling(shards: int, nb: int, rowblk: np.ndarray,
     return (rowblk_t, nb_loc) + tuple(out)
 
 
-def _flat_tiles(src_t, dstloc_t, perm_t, slot_t, rowblk_t, block_v, nb):
-    """Tile arrays [S, NR, BE] → flat slots (src, global dst, perm, real?)."""
+def _flat_tiles(src_t, dstloc_t, rowblk_t, block_v, nb):
+    """Tile arrays [S, NR, BE] → flat int64 (src, global dst) per slot."""
     s = src_t.shape[0]
     gblk = rowblk_t.to(torch.int64) + (
         torch.arange(s, device=src_t.device) * nb)[:, None]
     dst = (gblk[..., None] * block_v + dstloc_t).reshape(-1)
-    return (src_t.reshape(-1).to(torch.int64), dst,
-            perm_t.reshape(-1).to(torch.int64), slot_t.reshape(-1) != 0)
+    return src_t.reshape(-1).to(torch.int64), dst
 
 
 def relax_sweep_plain(keys: torch.Tensor, hub: torch.Tensor | None,
@@ -170,8 +184,9 @@ def relax_sweep_plain(keys: torch.Tensor, hub: torch.Tensor | None,
     n_out = src_t.shape[0] * nb * block_v
     if w.shape[0] == 0:  # zero-capacity graph: all-padding tiles
         return torch.full((p, n), inf, dtype=torch.int32, device=keys.device)
-    src, dst, perm, real = _flat_tiles(src_t, dstloc_t, perm_t, slot_t,
-                                       rowblk_t, block_v, nb)
+    src, dst = _flat_tiles(src_t, dstloc_t, rowblk_t, block_v, nb)
+    perm = perm_t.reshape(-1).to(torch.int64)
+    real = slot_t.reshape(-1) != 0
     live = mask[..., perm] & real
     sw = step * torch.where(real, w[perm], 0)
     cand = sat_add(keys[:, src], sw, inf)
@@ -247,4 +262,75 @@ def relax_sweep(keys: torch.Tensor, hub: torch.Tensor | None,
         raise RuntimeError(
             f"relax_sweep kernel launch failed: CUDA error {err}")
     launches += 1
+    return out
+
+
+def edge_relax_plain(keys: torch.Tensor, src_t: torch.Tensor,
+                     dstloc_t: torch.Tensor, valid_t: torch.Tensor,
+                     rowblk_t: torch.Tensor, step: int, n: int, block_v: int,
+                     nb: int) -> torch.Tensor:
+    """The plain PyTorch version of the legacy sweep, on the same tiles.
+
+    Flattens the tiles to (src, global dst, valid) and takes one
+    segment-min over the S·nb·block_v tiled outputs, cut to n: the rows of
+    a chunked block fold in the same min.
+    """
+    n_out = src_t.shape[0] * nb * block_v
+    src, dst = _flat_tiles(src_t, dstloc_t, rowblk_t, block_v, nb)
+    s = keys[src] + step
+    cand = torch.where(s < 0, INF32, s).clamp_max(INF32)
+    return masked_segment_min(cand, dst, n_out, valid_t.reshape(-1) != 0,
+                              INF32)[:n]
+
+
+_EDGE_RELAX_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                        + [ctypes.c_void_p])
+
+
+def edge_relax(keys: torch.Tensor, src_t: torch.Tensor,
+               dstloc_t: torch.Tensor, valid_t: torch.Tensor,
+               rowblk_t: torch.Tensor, step: int, n: int, block_v: int,
+               nb: int) -> torch.Tensor:
+    """The legacy sweep of one plane: keys int32 [n] → int32 [n].
+
+    Tiles: int32 [S, NR, BE], rowblk_t int32 [S, NR]; `step` is an int32
+    value. See the module doc for the function.
+    """
+    global launches_edge_relax
+    if keys.shape != (n,) or keys.dtype != torch.int32:
+        raise ValueError(f"keys must be int32 [{n}], got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+    tiles = (src_t, dstloc_t, valid_t)
+    if src_t.dim() != 3 or any(t.shape != src_t.shape
+                               or t.dtype != torch.int32 for t in tiles) \
+            or rowblk_t.shape != src_t.shape[:2] \
+            or rowblk_t.dtype != torch.int32:
+        raise ValueError("tile arrays must be int32 [S, NR, BE] with "
+                         "rowblk_t int32 [S, NR]")
+    if not -2**31 <= step < 2**31:
+        raise ValueError(f"step must be an int32 value, got {step}")
+    if any(a.device != keys.device for a in (*tiles, rowblk_t)):
+        raise ValueError("all edge_relax tensors must be on one device")
+    if keys.device.type == "cpu":
+        return edge_relax_plain(keys, src_t, dstloc_t, valid_t, rowblk_t,
+                                step, n, block_v, nb)
+    if keys.device.type != "cuda":
+        raise ValueError(f"no edge_relax kernel for device {keys.device}")
+    if any(not a.is_contiguous() for a in (keys, *tiles, rowblk_t)):
+        raise ValueError("edge_relax tensors must be contiguous")
+    if block_v * 4 > MAX_SHARED_BYTES:
+        raise ValueError(f"block_v={block_v} exceeds {MAX_SHARED_BYTES} "
+                         "bytes of shared memory")
+    s, nr, be = src_t.shape
+    out = torch.full((n,), INF32, dtype=torch.int32, device=keys.device)
+    err = build.function("edge_relax", "edge_relax_launch",
+                         _EDGE_RELAX_ARGTYPES)(
+        keys.data_ptr(), src_t.data_ptr(), dstloc_t.data_ptr(),
+        valid_t.data_ptr(), rowblk_t.data_ptr(), out.data_ptr(), n, s * nr,
+        nr, be, block_v, nb, step,
+        torch.cuda.current_stream(keys.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"edge_relax kernel launch failed: CUDA error {err}")
+    launches_edge_relax += 1
     return out

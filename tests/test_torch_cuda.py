@@ -8,7 +8,9 @@ it:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The CPU files `tests/test_torch_*.py` hold the plain versions to the JAX
-package; these hold the kernels to the plain versions, bit for bit.
+package; these hold the kernels to the plain versions: bit for bit for
+the integer kernels, and for the float embedding bag to rtol = atol =
+1e-5 (float32 sums in another order), NaN rows included.
 """
 from __future__ import annotations
 
@@ -17,12 +19,15 @@ import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.core.engine import RelaxEngine
+from repro_torch.core.engine import WAVES, RelaxEngine
 from repro_torch.core.labelling import INF_KEY2, INF_KEY4
 from repro_torch.graphs import generators as gen
 from repro_torch.graphs.coo import INF_D
 from repro_torch.kernels.edge_relax import kernel as rk
 from repro_torch.kernels.edge_relax import ops as rops
+from repro_torch.kernels.edge_relax import ref as rref
+from repro_torch.kernels.embed_bag import kernel as ek
+from repro_torch.kernels.embed_bag import ops as eops
 from repro_torch.kernels.minplus import kernel as mk
 
 PARAMS = [(1, INF_D, 0), (2, INF_KEY2, 1), (4, INF_KEY4, 2)]
@@ -142,3 +147,118 @@ def test_api_on_card_equals_cpu(dev):
                                              lab.hub, aff, d)]
     for a, b in zip(*out.values()):
         assert torch.equal(a, b)
+
+
+def _edge_relax_equal(bg, keys, step):
+    args = (keys, bg.src_t, bg.dstloc_t, bg.valid_t, bg.rowblk_t, step,
+            bg.n, bg.block_v, bg.nb)
+    before = rk.launches_edge_relax
+    got = rk.edge_relax(*args)
+    torch.cuda.synchronize()
+    assert rk.launches_edge_relax == before + 1
+    assert torch.equal(got, rk.edge_relax_plain(*args))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [1, 2, 4])
+@pytest.mark.parametrize("block_e,shards", [(None, 1), (7, 2), (None, 2)])
+def test_edge_relax_kernel_matches_plain(dev, step, block_e, shards):
+    rng = np.random.default_rng(step * 10 + shards)
+    n, m = 61, 240
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    valid = rng.random(m) < 0.8
+    bg = rops.prepare(src, dst, valid, n, 16, shards, block_e, device=dev)
+    keys = torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32))
+    got = _edge_relax_equal(bg, keys.to(dev), step)
+    want = rref.edge_relax(keys, torch.from_numpy(src),
+                           torch.from_numpy(dst), torch.from_numpy(valid),
+                           step, n)
+    assert torch.equal(got.cpu(), want)
+    # Keys near INF32 and near 2^31 - 1 saturate to INF32.
+    near = torch.from_numpy(np.where(
+        rng.random(n) < 0.5, 2**31 - 1 - rng.integers(0, 4, n),
+        (1 << 29) - rng.integers(0, 4, n)).astype(np.int32))
+    _edge_relax_equal(bg, near.to(dev), step)
+    none = rops.prepare(src, dst, np.zeros(m, bool), n, 16, shards, block_e,
+                        device=dev)
+    assert (_edge_relax_equal(none, keys.to(dev), step) == 1 << 29).all()
+
+
+def _embed_bag_close(table, idx, w):
+    before = ek.launches
+    got = ek.embed_bag(table, idx, w)
+    torch.cuda.synchronize()
+    assert ek.launches == before + 1
+    torch.testing.assert_close(got, ek.embed_bag_plain(table, idx, w),
+                               rtol=1e-5, atol=1e-5, equal_nan=True)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 64, 100])
+@pytest.mark.parametrize("bag", [1, 7, 50])
+def test_embed_bag_kernel_matches_plain(dev, d, bag):
+    g = torch.Generator().manual_seed(d * 100 + bag)
+    n, b = 500, 37
+    table = torch.randn(n, d, generator=g).to(dev)
+    idx = torch.randint(0, n, (b, bag), generator=g, dtype=torch.int32)
+    w = torch.rand(b, bag, generator=g)
+    _embed_bag_close(table, idx.to(dev), w.to(dev))
+    _embed_bag_close(table.half(), idx.to(dev), w.to(dev))
+
+
+@pytest.mark.cuda
+def test_embed_bag_kernel_index_wrap_and_nan(dev):
+    n, d = 5, 8
+    table = torch.arange(n * d, dtype=torch.float32, device=dev).view(n, d)
+    idx = torch.tensor([[-1, 0], [n, 0], [-n, 1], [-n - 1, 2], [2, n + 3]],
+                       dtype=torch.int32, device=dev)
+    w = torch.tensor([[1.0, 0.5], [0.0, 1.0], [1.0, 1.0], [0.0, 1.0],
+                      [1.0, 0.0]], device=dev)
+    got = _embed_bag_close(table, idx, w).cpu()
+    assert torch.isnan(got[[1, 3, 4]]).all()
+    assert not torch.isnan(got[[0, 2]]).any()
+
+
+@pytest.mark.cuda
+def test_embed_bag_ops_masked_mean_on_card(dev):
+    g = torch.Generator().manual_seed(3)
+    table = torch.randn(300, 64, generator=g)
+    idx = torch.randint(0, 300, (20, 9), generator=g, dtype=torch.int32)
+    mask = torch.rand(20, 9, generator=g) < 0.6
+    got = eops.embed_bag(table.to(dev), idx.to(dev), mask.to(dev),
+                         mode="mean")
+    torch.testing.assert_close(got.cpu(),
+                               eops.embed_bag(table, idx, mask, mode="mean"),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("improved", [False, True])
+@pytest.mark.parametrize("threshold", [0.25, 1.0])
+def test_frontier_update_on_card_equals_full_sweep(dev, improved,
+                                                   threshold):
+    """The frontier update on the card equals the full-sweep one; at
+    threshold 1.0 every wave is masked, so the masked path runs on CUDA
+    tensors."""
+    n = 3000
+    edges = gen.barabasi_albert(n, 3, seed=8)
+    ups = gen.random_batch_updates(edges, n, n_ins=20, n_del=20, seed=9)
+    out = []
+    for frontier in (False, True):
+        engine = RelaxEngine(block_v=64, block_e=128, frontier=frontier,
+                             frontier_threshold=threshold,
+                             frontier_block=16, device=dev)
+        g, lab = api.build(n, edges, num_landmarks=8, device=dev,
+                           engine=engine)
+        WAVES.clear()
+        g, lab, aff = api.update(g, lab, ups, pad_to=48, engine=engine,
+                                 improved=improved)
+        out.append([x.cpu() for x in (g.src, g.valid, g.w, lab.dist,
+                                      lab.hub, lab.highway, aff)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    if threshold == 1.0:
+        assert WAVES["repair.masked"] == WAVES["repair"] > 0
