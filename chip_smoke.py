@@ -9,7 +9,10 @@
    nvcc, one process each, all at once.
 2. Holds each kernel to its plain PyTorch version on the card: the three
    integer kernels with `torch.equal`, the embedding bag to rtol = atol =
-   1e-5 (float32 sums in another order), over each kernel's edge cases.
+   1e-5 (float32 sums in another order), over each kernel's edge cases
+   (for the relax sweep, every case of `kernels/edge_relax/cases.py`, as
+   `tests/test_torch_cuda.py` runs them, and the block_v limit's
+   ValueError).
 3. Drives the port's main path through `repro_torch.api` at full size:
    Barabási–Albert(2^20, m=4, seed 0), capacity 2^23 edges, 32 landmarks;
    build; one mixed BHL⁺ tick of 512 inserts + 512 deletes; 1024 uniform
@@ -29,7 +32,13 @@
 5. Times each kernel on its own path's shapes with CUDA events, in turns
    with its plain version, beside its bound (bytes over 3.35 TB/s, or
    operations over 67 T/s, whichever is larger): the relax sweep and
-   min-plus at the main path's shapes; the legacy edge relax through
+   min-plus at the main path's shapes (the sweep for each wave kind of
+   the main path, the two per-plane-mask repair kinds among them, with
+   the bound of every tile slot and that of the live ones, and the
+   device time of each of its kernels — key transpose, mask pack, `inf`
+   fill, sweep — from one `torch.profiler` pass); one query microbatch
+   under `torch.profiler` (device-busy ms, host ms, idle share); the
+   legacy edge relax through
    `ops.prepare` / `ops.edge_relax` on the post-update graph (also held
    to the COO oracle `ref.edge_relax`); the embedding bag through
    `ops.embed_bag` at the MIND config's widths (10,485,760 × 64 float32
@@ -46,6 +55,7 @@ fails. Imports nothing of JAX or of the JAX package `repro`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -136,82 +146,92 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_kernels(torch, fn) -> tuple[dict, float, float]:
+    """Run `fn()` once under `torch.profiler`: ({kernel name: [device ms,
+    launches]}, device-busy ms, host ms). The card runs one stream here,
+    so the kernels' times add up to the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    per: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = per.setdefault(e.name[:90], [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    return per, sum(v[0] for v in per.values()), host_ms
+
+
+def sweep_parts(per: dict) -> dict:
+    """Kernel A's device ms by its kernels (transpose, pack, fill, sweep)."""
+    out = {}
+    for part in ("transpose_kernel", "pack_mask_kernel",
+                 "fill_chunked_kernel", "relax_sweep_kernel"):
+        out[part] = sum(v[0] for k, v in per.items() if part in k)
+    return out
+
+
+def profile_query(torch, api, g, lab, s, t) -> dict:
+    """One query microbatch (already warm) under the profiler."""
+    per, busy, host = device_kernels(
+        torch, lambda: api.query(g, lab, s, t, max_steps=MAX_STEPS))
+    top = dict(sorted(per.items(), key=lambda kv: -kv[1][0])[:8])
+    out = dict(host_ms=host, device_busy_ms=busy,
+               launches=sum(v[1] for v in per.values()),
+               idle_share=1.0 - busy / host if host > 0 else None,
+               relax_sweep=sweep_parts(per), longest=top)
+    log(f"query microbatch under torch.profiler: host {host:.3f} ms, device "
+        f"busy {busy:.3f} ms in {out['launches']} device launches, idle "
+        f"share {out['idle_share']:.4f}; kernel A parts {out['relax_sweep']};"
+        f" longest {top}")
+    if out["launches"] == 0:
+        raise AssertionError("the profiler saw no device kernel")
+    return out
+
+
 # --- phase 2: each kernel against its plain version -------------------------
 
 def check_kernels_small(torch, np, dev) -> int:
-    from repro_torch.core.labelling import INF_KEY2, INF_KEY4
-    from repro_torch.graphs.coo import INF_D
+    from repro_torch.kernels.edge_relax import cases as sweep_cases
     from repro_torch.kernels.edge_relax import kernel as rk
-    from repro_torch.kernels.edge_relax import ops as rops
     from repro_torch.kernels.minplus import kernel as mk
 
-    params = [(1, INF_D, 0), (2, INF_KEY2, 1), (4, INF_KEY4, 2)]
     cases = 0
-
-    def sweep_case(bg, keys, hub, mask, w, step, inf, clear, what):
-        nonlocal cases
-        args = (keys, hub, bg.src_t, bg.dstloc_t, bg.perm_t, bg.slot_t,
-                bg.rowblk_t, mask, w, step, inf, clear, bg.n, bg.block_v,
-                bg.nb)
-        got = rk.relax_sweep(*args)
-        torch.cuda.synchronize()
-        want = rk.relax_sweep_plain(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = int((got != want).sum())
-            raise AssertionError(f"relax_sweep != plain: {what} "
-                                 f"({bad} entries differ)")
-        cases += 1
+    for name in sweep_cases.names():
+        for c in sweep_cases.make(name):
+            args = sweep_cases.sweep_args(c, dev)
+            got = rk.relax_sweep(*args)
+            torch.cuda.synchronize()
+            want = rk.relax_sweep_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"relax_sweep != plain: {name} "
+                                     f"{c.label} ({bad} entries differ)")
+            cases += 1
+    # One block_v past the shared-memory limit raises, the limit named.
+    limit = rk.SWEEP_MAX_BLOCK_V
+    c = dataclasses.replace(sweep_cases.make("near-inf")[0],
+                            block_v=limit + 1)
+    try:
+        rk.relax_sweep(*sweep_cases.sweep_args(c, dev))
+    except ValueError as err:
+        if f"block_v <= {limit}" not in str(err):
+            raise
+    else:
+        raise AssertionError(f"relax_sweep took block_v={limit + 1}")
+    cases += 1
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     rng = np.random.default_rng(0)
-    n, m, planes = 61, 240, 3
-    src = rng.integers(0, n, m).astype(np.int32)
-    dst = rng.integers(0, n, m).astype(np.int32)
-    keep = rng.random(m) < 0.8
-    masks = keep & (rng.random((planes, m)) < 0.85)
-    w = t(rng.integers(1, 9, m).astype(np.int32))
-    hub = t(rng.random((planes, n)) < 0.3)
-    for be, shards in ((None, 1), (7, 2)):
-        bg = rops.prepare_topology(src, dst, keep, n, 16, shards, be,
-                                   device=dev)
-        assert bg.chunked == (be is not None)
-        for step, inf, clear in params:
-            keys = t(rng.integers(0, inf, (planes, n), endpoint=True)
-                     .astype(np.int32))
-            for h in (None, hub):
-                for msk in (t(masks[0]), t(masks)):
-                    sweep_case(bg, keys, h, msk, w, step, inf, clear,
-                               f"step={step} block_e={be} hub="
-                               f"{h is not None} mask={tuple(msk.shape)}")
-        sweep_case(bg, keys, hub, t(np.zeros(m, bool)), w, 4, INF_KEY4, 2,
-                   "empty mask")
-
-    # The short last shard: n=24, block_v=8, shards=2, block_e=4.
-    n = 24
-    dst = np.array([1, 9, 16, 17, 18, 19, 20, 21, 2, 10], np.int32)
-    src = rng.integers(0, n, len(dst)).astype(np.int32)
-    ones = np.ones(len(dst), bool)
-    bg = rops.prepare_topology(src, dst, ones, n, 8, 2, 4, device=dev)
-    assert bg.chunked and bg.src_t.shape[1] == bg.nb
-    sweep_case(bg, t(rng.integers(0, 2 * n, (2, n)).astype(np.int32)), None,
-               t(ones), t(ones.astype(np.int32)), 1, 1 << 29, 0,
-               "short last shard")
-
-    # Near-INF weights: keys step·INF_D + step − 1 through w = INF_D.
-    n = 6
-    src = np.array([0, 1, 2, 3], np.int32)
-    dst = np.array([1, 2, 3, 4], np.int32)
-    ones = np.ones(4, bool)
-    bg = rops.prepare_topology(src, dst, ones, n, 4, 1, None, device=dev)
-    hub_n = t(np.array([[False, True, False, True, False, False]]))
-    for step, inf, clear in params:
-        keys = t(np.full((1, n), step * INF_D + step - 1, np.int32))
-        sweep_case(bg, keys, hub_n, t(ones), t(np.full(4, INF_D, np.int32)),
-                   step, inf, clear, f"near-INF step={step}")
-
     # Min-plus: B in {1, 32, 1024} at R = 32, and a rectangular [8, 32] H.
     for b, p, r in ((1, 32, 32), (32, 32, 32), (1024, 32, 32),
                     (256, 8, 32)):
@@ -727,17 +747,29 @@ def main() -> int:
     for _ in range(2):
         ds = torch.minimum(ds, teng.relax_sweep(
             teng.RelaxPlan(bg), g1, ds, 1, INF_D))
-    waves = [("bibfs (1, INF_D, 0)", ds, None, 1, INF_D, 0),
-             ("search basic (1, INF_D, 0)", lab1.dist, None, 1, INF_D, 0),
-             ("construct/repair (2, INF_KEY2, 1)", key2, hub_mask, 2,
-              INF_KEY2, 1),
-             ("search improved (4, INF_KEY4, 2)", 2 * key2 + 1, hub_mask, 4,
-              INF_KEY4, 2)]
+    # The repair's per-plane masks on the update's affected sets.
+    src_aff = aff1[:, g1.src.long()]
+    dst_aff = aff1[:, g1.dst.long()]
+    bou_mask = g1.valid & ~src_aff & dst_aff
+    int_mask = g1.valid & src_aff & dst_aff
+    del src_aff, dst_aff
+    waves = [("bibfs (1, INF_D, 0)", ds, None, g1.valid, 1, INF_D, 0),
+             ("search basic (1, INF_D, 0)", lab1.dist, None, g1.valid, 1,
+              INF_D, 0),
+             ("construct/repair (2, INF_KEY2, 1)", key2, hub_mask, g1.valid,
+              2, INF_KEY2, 1),
+             ("search improved (4, INF_KEY4, 2)", 2 * key2 + 1, hub_mask,
+              g1.valid, 4, INF_KEY4, 2),
+             ("repair base, per-plane bou_mask (2, INF_KEY2, 1)", key2,
+              hub_mask, bou_mask, 2, INF_KEY2, 1),
+             ("repair interior, per-plane int_mask (2, INF_KEY2, 1)", key2,
+              hub_mask, int_mask, 2, INF_KEY2, 1)]
+    live_slots = int((bg.slot_t != 0).sum())
     sweep_rows = []
-    for name, keys, hub, step, inf, clear in waves:
+    for name, keys, hub, mask, step, inf, clear in waves:
         keys = keys.contiguous()
         args = (keys, hub, bg.src_t, bg.dstloc_t, bg.perm_t, bg.slot_t,
-                bg.rowblk_t, g1.valid, g1.w, step, inf, clear, N,
+                bg.rowblk_t, mask, g1.w, step, inf, clear, N,
                 bg.block_v, bg.nb)
         got = rk.relax_sweep(*args)
         want = rk.relax_sweep_plain(*args)
@@ -747,17 +779,33 @@ def main() -> int:
             raise AssertionError(f"relax_sweep != plain at full size: {name}")
         ms, plain = paired_ms(lambda: rk.relax_sweep(*args),
                               lambda: rk.relax_sweep_plain(*args), 10, 3)
+        parts = sweep_parts(device_kernels(torch, lambda: rk.relax_sweep(
+            *args))[0])
         p = keys.shape[0]
-        nbytes = (p * N * 4 * 2 + (p * N if hub is not None else 0)
-                  + bg.slots * 4 * 4 + bg.rowblk_t.numel() * 4 + e2 + e2 * 4)
-        ops = 4 * p * live  # add, saturate, hub clear, min per live slot
+        live_edges = int(mask.sum())
+        # Keys in and out, hub, mask and w once each, and the tile
+        # indices of every slot ("padded") or of the live ones only.
+        common = (p * N * 4 * 2 + (p * N if hub is not None else 0)
+                  + mask.numel() + e2 * 4 + bg.rowblk_t.numel() * 4)
+        nbytes = common + bg.slots * 4 * 4
+        ops = 4 * live_edges * (1 if mask.dim() == 2 else p)
         bms, by = bound_ms(nbytes, ops)
+        need_ms, _ = bound_ms(common + live_slots * 4 * 4, ops)
         sweep_rows.append(dict(wave=name, ms=ms, plain_ms=plain, bound_ms=bms,
-                               bound_by=by, max_abs_err=err,
-                               planes=p, bytes=nbytes))
+                               bound_by=by, needed_bound_ms=need_ms,
+                               max_abs_err=err, planes=p, bytes=nbytes,
+                               live_plane_edges=live_edges
+                               * (1 if mask.dim() == 2 else p),
+                               device_ms=parts))
         log(f"relax_sweep {name}: [{p}, {N}] keys, {bg.slots} slots: kernel "
             f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms ({by}), "
-            f"max_abs_err {err}")
+            f"needed-bytes bound {need_ms:.4f} ms ({live_slots} live tile "
+            f"slots), max_abs_err {err}; device ms of one call {parts}")
+    del bou_mask, int_mask
+
+    # One query microbatch under the profiler: how busy the card is.
+    q_prof = profile_query(torch, api, g1, lab1, qs[:MICROBATCH],
+                           qt[:MICROBATCH])
 
     mp_rows = []
     lab_eff = tq.effective_labels(lab1)
@@ -830,7 +878,8 @@ def main() -> int:
                    bibfs_waves=bibfs_waves, peak_gb=peak_gb,
                    tile_rows=nr, tile_slots=bg.slots,
                    unchunked_slots=unchunked, prepare_s=prep_s,
-                   relax_sweep=sweep_rows, minplus=mp_rows,
+                   relax_sweep=sweep_rows, query_profile=q_prof,
+                   minplus=mp_rows,
                    frontier=frontier, edge_relax=er_row, embed_bag=bag_rows,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")

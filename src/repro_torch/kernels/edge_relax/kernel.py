@@ -16,7 +16,11 @@ CUDA tensors and runs `relax_sweep_plain` — the same function in plain
 PyTorch on the same tiled arrays — for CPU tensors; any other device
 raises. They replace the Pallas `_relax_sweep_kernel` and its row fold
 `_reduce_rows` in `repro/kernels/edge_relax/kernel.py`, where each plane
-is one vmapped `pallas_call`.
+is one vmapped `pallas_call`. The kernel walks each tile row once for a
+group of up to 32 planes (`plane_group` sizes the group to the shared
+memory) and reads the keys through a vertex-major copy that it makes
+itself ([groups, n, group_width]; [n, 32] for 32 planes); the arguments
+and the result stay plane-major [P, n].
 
 `edge_relax` is the legacy sweep of one plane with its validity baked
 into the tiles at prepare time (`ops.prepare`) and no weight or hub:
@@ -47,7 +51,14 @@ from repro_torch.core.labelling import sat_add
 from repro_torch.graphs.segment import masked_segment_min
 from repro_torch.kernels import build
 
-MAX_SHARED_BYTES = 48 * 1024  # the [block_v] tile is static-limit shared
+MAX_SHARED_BYTES = 48 * 1024  # kernel C's [block_v] tile is static-limit
+
+#: Dynamic shared memory one CTA of kernel A may opt in to on sm_90.
+SWEEP_SHARED_BYTES = 232_448
+SWEEP_MAX_GROUP = 32  # planes per CTA: one warp's lanes
+SWEEP_CHUNK = 256     # slots per staged chunk (kChunk in relax_sweep.cu)
+#: The widest block_v whose one-plane tile and hub words still fit.
+SWEEP_MAX_BLOCK_V = (SWEEP_SHARED_BYTES // 4 - 8 * SWEEP_CHUNK) // 2
 
 INF32 = 1 << 29  # the legacy sweep's infinity, fixed as in the reference
 
@@ -197,9 +208,43 @@ def relax_sweep_plain(keys: torch.Tensor, hub: torch.Tensor | None,
     return masked_segment_min(cand, dst, n_out, live, inf)[:, :n]
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
-             + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+def group_width(group: int) -> int:
+    """Columns a plane group takes in kernel A's tile and key copy: the
+    power of two at or above `group`."""
+    return 1 << max(group - 1, 0).bit_length()
+
+
+def sweep_shared_bytes(group: int, block_v: int) -> int:
+    """Dynamic shared memory of one kernel-A CTA for `group` planes: two
+    staged chunks of the four index streams, the [block_v, group_width]
+    int32 tile and one hub word per vertex of the block."""
+    return 4 * (2 * 4 * SWEEP_CHUNK + block_v * group_width(group) + block_v)
+
+
+def plane_group(p: int, block_v: int) -> int:
+    """Planes per CTA of kernel A for P = `p` planes.
+
+    The most that one warp's lanes and the shared memory allow (at most
+    32), then evened out over the ceil(P / G) groups, so that P = 33 runs
+    as groups of 17 and 16 rather than 32 and 1. Raises ValueError when
+    not even one plane's tile fits.
+    """
+    if block_v > SWEEP_MAX_BLOCK_V:
+        raise ValueError(
+            f"block_v={block_v} needs {sweep_shared_bytes(1, block_v)} bytes "
+            f"of shared memory per CTA; the limit is {SWEEP_SHARED_BYTES} "
+            f"(block_v <= {SWEEP_MAX_BLOCK_V})")
+    p = max(p, 1)
+    g = min(p, SWEEP_MAX_GROUP)
+    while sweep_shared_bytes(g, block_v) > SWEEP_SHARED_BYTES:
+        g -= 1
+    groups = -(-p // g)
+    return -(-p // groups)
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+             + [ctypes.c_void_p])
 
 
 def relax_sweep(keys: torch.Tensor, hub: torch.Tensor | None,
@@ -246,18 +291,27 @@ def relax_sweep(keys: torch.Tensor, hub: torch.Tensor | None,
         raise ValueError(f"no relax_sweep kernel for device {keys.device}")
     if any(a is not None and not a.is_contiguous() for a in args):
         raise ValueError("sweep tensors must be contiguous")
-    if block_v * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"block_v={block_v} exceeds {MAX_SHARED_BYTES} "
-                         "bytes of shared memory")
+    group = plane_group(p, block_v)
     s, nr, be = src_t.shape
-    out = torch.full((p, n), inf, dtype=torch.int32, device=keys.device)
+    dev = keys.device
+    groups = -(-p // group)
+    # The kernel writes every entry of `out`. keys_t and mask_words are
+    # its scratch: each group's keys vertex-major [groups, n, width], and
+    # a per-plane mask as one bit per plane [groups, E2].
+    out = torch.empty((p, n), dtype=torch.int32, device=dev)
+    keys_t = keys if p == 1 else torch.empty(
+        (groups, n, group_width(group)), dtype=torch.int32, device=dev)
+    per_plane = mask.dim() == 2
+    mask_words = torch.empty((groups, e2) if per_plane else (0,),
+                             dtype=torch.int32, device=dev)
     err = build.function("relax_sweep", "relax_sweep_launch", _ARGTYPES)(
         keys.data_ptr(), hub.data_ptr() if hub is not None else None,
         src_t.data_ptr(), dstloc_t.data_ptr(), perm_t.data_ptr(),
         slot_t.data_ptr(), rowblk_t.data_ptr(), mask.data_ptr(),
-        int(mask.dim() == 2), w.data_ptr(), out.data_ptr(), p, n, e2, s, nr,
-        be, block_v, nb, step, inf, clear_bit,
-        torch.cuda.current_stream(keys.device).cuda_stream)
+        int(per_plane), w.data_ptr(), out.data_ptr(), keys_t.data_ptr(),
+        mask_words.data_ptr(), p, group, sweep_shared_bytes(group, block_v),
+        n, e2, s, nr, be, block_v, nb, step, inf, clear_bit,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"relax_sweep kernel launch failed: CUDA error {err}")

@@ -23,6 +23,7 @@ from repro_torch.core.engine import WAVES, RelaxEngine
 from repro_torch.core.labelling import INF_KEY2, INF_KEY4
 from repro_torch.graphs import generators as gen
 from repro_torch.graphs.coo import INF_D
+from repro_torch.kernels.edge_relax import cases
 from repro_torch.kernels.edge_relax import kernel as rk
 from repro_torch.kernels.edge_relax import ops as rops
 from repro_torch.kernels.edge_relax import ref as rref
@@ -106,6 +107,48 @@ def test_relax_sweep_kernel_short_last_shard(dev):
     _sweep_equal(bg, keys.to(dev), None, torch.from_numpy(keep).to(dev),
                  torch.ones(len(dst), dtype=torch.int32, device=dev), 1,
                  1 << 29, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", cases.names())
+def test_relax_sweep_kernel_edge_cases(dev, name):
+    """Every sweep of each edge case of `kernels/edge_relax/cases.py`:
+    P in {1, 3, 31, 32, 33, 100, 1024} × block_v in {4, ..., 12288},
+    block_e in {None, 1, 7} × S in {1, 2, 3}, shared and per-plane masks
+    with E2 % 4 in {0, 2}, near-INF keys, all-masked, zero capacity."""
+    for c in cases.make(name):
+        args = cases.sweep_args(c, dev)
+        before = rk.launches
+        got = rk.relax_sweep(*args)
+        torch.cuda.synchronize()
+        assert rk.launches == before + 1
+        assert torch.equal(got, rk.relax_sweep_plain(*args)), c.label
+
+
+@pytest.mark.cuda
+def test_relax_sweep_kernel_block_v_limit(dev):
+    """The widest block_v whose one-plane tile fits runs (three planes,
+    one per CTA); one more raises the wrapper's ValueError, limit named."""
+    rng = np.random.default_rng(5)
+    n, m, p = 40, 120, 3
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    keep = np.ones(m, bool)
+    w = torch.from_numpy(rng.integers(1, 9, m).astype(np.int32)).to(dev)
+    keys = torch.from_numpy(rng.integers(0, INF_D, (p, n))
+                            .astype(np.int32)).to(dev)
+    hub = torch.from_numpy(rng.random((p, n)) < 0.3).to(dev)
+    mask = torch.from_numpy(keep).to(dev)
+    limit = rk.SWEEP_MAX_BLOCK_V
+    assert rk.sweep_shared_bytes(1, limit) == rk.SWEEP_SHARED_BYTES
+    bg = rops.prepare_topology(src, dst, keep, n, limit, 1, None, device=dev)
+    _sweep_equal(bg, keys, hub, mask, w, 2, INF_KEY2, 1)
+    bg = rops.prepare_topology(src, dst, keep, n, limit + 1, 1, None,
+                               device=dev)
+    with pytest.raises(ValueError, match=f"block_v <= {limit}"):
+        rk.relax_sweep(keys, hub, bg.src_t, bg.dstloc_t, bg.perm_t,
+                       bg.slot_t, bg.rowblk_t, mask, w, 2, INF_KEY2, 1,
+                       bg.n, bg.block_v, bg.nb)
 
 
 @pytest.mark.cuda

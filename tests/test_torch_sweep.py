@@ -6,11 +6,15 @@ what the wrapper runs for CPU tensors) and the port's COO reference
 `relax_sweep_pallas` (interpret mode) and its jnp engine branch, over the
 three parameter sets, ragged `block_e`, the short-last-shard tiling,
 near-INF weights, an empty mask, per-plane and shared masks and P > 1
-planes. The host tiling arrays and the engine's fingerprint and plan
-cache are compared too.
+planes. Every edge case of `kernels/edge_relax/cases.py` (plane counts up
+to 1024 and block_v up to 12288 among them) is held to the reference
+too, and the kernel's plane-group sizing is checked on its own. The host
+tiling arrays and the engine's fingerprint and plan cache are compared
+too.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from repro.kernels.edge_relax import ops as jops
 from repro_torch.core import engine as teng
 from repro_torch.graphs.coo import INF_D, Graph as TGraph
 from repro_torch.core.labelling import INF_KEY2, INF_KEY4
+from repro_torch.kernels.edge_relax import cases
 from repro_torch.kernels.edge_relax import kernel as tker
 from repro_torch.kernels.edge_relax import ops as tops
 
@@ -236,3 +241,58 @@ def test_fingerprint_and_plan_cache_match_reference():
             eng_t.stale_cache_retiles) == \
         (eng_j.retile_count, eng_j.plan_cache_hits, eng_j.stale_cache_retiles)
     assert eng_t.stale_cache_retiles == 1
+
+
+@pytest.mark.parametrize("name", cases.names())
+def test_sweep_edge_cases_match_reference(name):
+    """Each sweep of the edge case: the port's tiled sweep on the CPU
+    (kernel A's plain version) against the reference's jnp branch over
+    all planes (vmapped), and plane 0 against its Pallas kernel."""
+    for c in cases.make(name, max_edges=4096):
+        got = tker.relax_sweep(*cases.sweep_args(c, "cpu")).numpy()
+        jg = JGraph(*(jnp.asarray(x) for x in (c.src, c.dst, c.keep, c.w)),
+                    c.n)
+        hub = None if c.hub is None else jnp.asarray(c.hub)
+        want = jax.vmap(
+            lambda k, m, h: jeng.relax_sweep(
+                jeng.JNP_PLAN, jg, k, c.step, c.inf, hub=h,
+                clear_bit=c.clear, edge_mask=m),
+            in_axes=(0, 0 if c.mask.ndim == 2 else None,
+                     None if hub is None else 0))(
+            jnp.asarray(c.keys), jnp.asarray(c.mask), hub)
+        np.testing.assert_array_equal(got, np.asarray(want), err_msg=c.label)
+        jbg = jops.prepare_topology(c.src, c.dst, c.keep, c.n, c.block_v,
+                                    c.shards, c.block_e)
+        np.testing.assert_array_equal(
+            got[0], _jax_plane(c.step, c.inf, c.clear, jbg, c.keys[0],
+                               c.mask if c.mask.ndim == 1 else c.mask[0],
+                               None if c.hub is None else c.hub[0], c.w),
+            err_msg=c.label)
+
+
+@pytest.mark.parametrize("p", cases.PLANES)
+@pytest.mark.parametrize("block_v", cases.BLOCK_VS + (tker.SWEEP_MAX_BLOCK_V,))
+def test_plane_group_fits_shared_memory(p, block_v):
+    """Kernel A's plane group: at most 32 planes and the shared-memory
+    limit, as few groups as that allows, evened out over them."""
+    g = tker.plane_group(p, block_v)
+    assert 1 <= g <= min(p, tker.SWEEP_MAX_GROUP)
+    assert tker.sweep_shared_bytes(g, block_v) <= tker.SWEEP_SHARED_BYTES
+    groups = -(-p // g)
+    assert groups * g - p < groups  # evened out: no group short by > 1
+    widest = max(k for k in range(1, tker.SWEEP_MAX_GROUP + 1)
+                 if tker.sweep_shared_bytes(k, block_v)
+                 <= tker.SWEEP_SHARED_BYTES)
+    assert groups == -(-p // min(p, widest))
+
+
+def test_plane_group_limits():
+    assert tker.plane_group(32, 512) == 32
+    assert tker.sweep_shared_bytes(32, 512) == 75_776  # three CTAs per SM
+    assert tker.plane_group(33, 512) == 17
+    assert tker.plane_group(100, 512) == 25
+    assert tker.plane_group(32, 12288) == 2
+    assert tker.SWEEP_MAX_BLOCK_V == 28032
+    assert tker.sweep_shared_bytes(1, 28032) == tker.SWEEP_SHARED_BYTES
+    with pytest.raises(ValueError, match="limit is 232448 .block_v <= 28032"):
+        tker.plane_group(1, 28033)
