@@ -10,7 +10,7 @@
 2. Holds each kernel to its plain PyTorch version on the card: the three
    integer kernels with `torch.equal`, the embedding bag to rtol = atol =
    1e-5 (float32 sums in another order), over each kernel's edge cases
-   (for the relax sweep, every case of `kernels/edge_relax/cases.py`, as
+   (for the relax sweep, every case of `tests/_sweep_cases.py`, as
    `tests/test_torch_cuda.py` runs them, and the block_v limit's
    ValueError).
 3. Drives the port's main path through `repro_torch.api` at full size:
@@ -34,10 +34,13 @@
    operations over 67 T/s, whichever is larger): the relax sweep and
    min-plus at the main path's shapes (the sweep for each wave kind of
    the main path, the two per-plane-mask repair kinds among them, with
-   the bound of every tile slot and that of the live ones, and the
-   device time of each of its kernels — key transpose, mask pack, `inf`
-   fill, sweep — from one `torch.profiler` pass); one query microbatch
-   under `torch.profiler` (device-busy ms, host ms, idle share); the
+   the bound of the bytes the sweep needs — index streams of the live
+   tile slots, only `slot_t` of the padding ones, w and mask of the live
+   edges — beside the bound of every padded tile slot, and the device
+   time of each of its kernels — key transpose, mask pack, `inf` fill,
+   sweep — from one `torch.profiler` pass); one query microbatch under
+   `torch.profiler` (device-busy ms, against the same call's median host
+   ms timed without the profiler for the idle share); the
    legacy edge relax through
    `ops.prepare` / `ops.edge_relax` on the post-update graph (also held
    to the COO oracle `ref.edge_relax`); the embedding bag through
@@ -65,6 +68,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))   # _sweep_cases, kernel A's cases
 
 N = 1 << 20
 BA_M = 4
@@ -177,18 +181,34 @@ def sweep_parts(per: dict) -> dict:
     return out
 
 
-def profile_query(torch, api, g, lab, s, t) -> dict:
-    """One query microbatch (already warm) under the profiler."""
-    per, busy, host = device_kernels(
-        torch, lambda: api.query(g, lab, s, t, max_steps=MAX_STEPS))
+def profile_query(torch, api, g, lab, s, t, reps: int = 7) -> dict:
+    """One query microbatch (already warm): its median host ms over `reps`
+    runs without the profiler, then one run under it for the device-busy
+    ms. The idle share divides by the unprofiled wall, since the
+    profiler's own host work lengthens the profiled one."""
+    def call():
+        return api.query(g, lab, s, t, max_steps=MAX_STEPS)
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    host = statistics.median(walls)
+    per, busy, host_prof = device_kernels(torch, call)
     top = dict(sorted(per.items(), key=lambda kv: -kv[1][0])[:8])
-    out = dict(host_ms=host, device_busy_ms=busy,
+    out = dict(host_ms=host, host_ms_runs=walls, host_ms_profiled=host_prof,
+               device_busy_ms=busy,
                launches=sum(v[1] for v in per.values()),
-               idle_share=1.0 - busy / host if host > 0 else None,
+               idle_share=1.0 - busy / host,
+               idle_share_profiled_wall=1.0 - busy / host_prof,
                relax_sweep=sweep_parts(per), longest=top)
-    log(f"query microbatch under torch.profiler: host {host:.3f} ms, device "
-        f"busy {busy:.3f} ms in {out['launches']} device launches, idle "
-        f"share {out['idle_share']:.4f}; kernel A parts {out['relax_sweep']};"
+    log(f"query microbatch: host {host:.3f} ms (median of {reps} without "
+        f"the profiler; {host_prof:.3f} ms under it), device busy "
+        f"{busy:.3f} ms in {out['launches']} device launches, idle share "
+        f"{out['idle_share']:.4f} ({out['idle_share_profiled_wall']:.4f} "
+        f"against the profiled wall); kernel A parts {out['relax_sweep']};"
         f" longest {top}")
     if out["launches"] == 0:
         raise AssertionError("the profiler saw no device kernel")
@@ -198,7 +218,7 @@ def profile_query(torch, api, g, lab, s, t) -> dict:
 # --- phase 2: each kernel against its plain version -------------------------
 
 def check_kernels_small(torch, np, dev) -> int:
-    from repro_torch.kernels.edge_relax import cases as sweep_cases
+    import _sweep_cases as sweep_cases
     from repro_torch.kernels.edge_relax import kernel as rk
     from repro_torch.kernels.minplus import kernel as mk
 
@@ -764,7 +784,10 @@ def main() -> int:
               hub_mask, bou_mask, 2, INF_KEY2, 1),
              ("repair interior, per-plane int_mask (2, INF_KEY2, 1)", key2,
               hub_mask, int_mask, 2, INF_KEY2, 1)]
-    live_slots = int((bg.slot_t != 0).sum())
+    live_slot = bg.slot_t.reshape(-1) != 0
+    live_slots = int(live_slot.sum())
+    perm_live = bg.perm_t.reshape(-1)[live_slot].long()
+    del live_slot
     sweep_rows = []
     for name, keys, hub, mask, step, inf, clear in waves:
         keys = keys.contiguous()
@@ -782,26 +805,38 @@ def main() -> int:
         parts = sweep_parts(device_kernels(torch, lambda: rk.relax_sweep(
             *args))[0])
         p = keys.shape[0]
-        live_edges = int(mask.sum())
-        # Keys in and out, hub, mask and w once each, and the tile
-        # indices of every slot ("padded") or of the live ones only.
-        common = (p * N * 4 * 2 + (p * N if hub is not None else 0)
-                  + mask.numel() + e2 * 4 + bg.rowblk_t.numel() * 4)
-        nbytes = common + bg.slots * 4 * 4
-        ops = 4 * live_edges * (1 if mask.dim() == 2 else p)
+        # The mask at each live tile slot's edge; the (plane, slot) pairs
+        # it lets through, and the slots some plane lets through.
+        m_live = mask[..., perm_live]
+        plane_edges = int(m_live.sum()) * (p if mask.dim() == 1 else 1)
+        used = int((m_live if mask.dim() == 1 else m_live.any(0)).sum())
+        del m_live
+        # Needed bytes: keys in and out, hub and rowblk once each; the four
+        # index streams of each live tile slot and only slot_t of each
+        # padding slot; the mask of each live slot's edge and w of each
+        # edge a plane lets through.
+        keys_hub = (p * N * 4 * 2 + (p * N if hub is not None else 0)
+                    + bg.rowblk_t.numel() * 4)
+        nbytes = (keys_hub + live_slots * 16 + (bg.slots - live_slots) * 4
+                  + live_slots * (p if mask.dim() == 2 else 1) + used * 4)
+        ops = 4 * plane_edges   # add, saturate, hub clear, min per pair
         bms, by = bound_ms(nbytes, ops)
-        need_ms, _ = bound_ms(common + live_slots * 4 * 4, ops)
+        # Every padded tile slot's indices, and w and mask of every slot.
+        padded_bytes = keys_hub + bg.slots * 16 + mask.numel() + e2 * 4
+        padded_ms, _ = bound_ms(padded_bytes, ops)
         sweep_rows.append(dict(wave=name, ms=ms, plain_ms=plain, bound_ms=bms,
-                               bound_by=by, needed_bound_ms=need_ms,
-                               max_abs_err=err, planes=p, bytes=nbytes,
-                               live_plane_edges=live_edges
-                               * (1 if mask.dim() == 2 else p),
+                               bound_by=by, bytes=nbytes,
+                               padded_bound_ms=padded_ms,
+                               padded_bytes=padded_bytes,
+                               max_abs_err=err, planes=p,
+                               live_plane_edges=plane_edges,
                                device_ms=parts))
-        log(f"relax_sweep {name}: [{p}, {N}] keys, {bg.slots} slots: kernel "
-            f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms ({by}), "
-            f"needed-bytes bound {need_ms:.4f} ms ({live_slots} live tile "
-            f"slots), max_abs_err {err}; device ms of one call {parts}")
-    del bou_mask, int_mask
+        log(f"relax_sweep {name}: [{p}, {N}] keys, {bg.slots} slots "
+            f"({live_slots} live): kernel {ms:.3f} ms, plain {plain:.3f} ms,"
+            f" bound {bms:.4f} ms ({by}, {nbytes} needed bytes), padded-tile "
+            f"bound {padded_ms:.4f} ms ({padded_bytes} bytes), max_abs_err "
+            f"{err}; device ms of one call {parts}")
+    del bou_mask, int_mask, perm_live
 
     # One query microbatch under the profiler: how busy the card is.
     q_prof = profile_query(torch, api, g1, lab1, qs[:MICROBATCH],

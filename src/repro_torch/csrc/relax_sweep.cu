@@ -30,16 +30,18 @@
 //   streams and the w/mask gathers are read once per row and group, not
 //   once per plane.
 // - Keys are read vertex-major: the launcher first copies keys [P, n]
-//   into keys_t [groups, n, W] (transpose_kernel; for P = 32 that is the
-//   [n, 32] transpose), so the planes of one slot's source are one
-//   128-byte line for G = 32. A lane takes V = min(4, W) planes of a slot
-//   with one V-int load, so a warp works on 32 V / W slots at a time and
-//   spends a quarter of the instructions per slot that a lane per plane
-//   would (those instructions, not the gathers, bounded the lane-per-
-//   plane form on the card). The hub bits of the row's destination block
-//   are packed into one word per vertex in shared memory. A per-plane
-//   mask [P, E2] is first packed into words [groups, E2]
-//   (pack_mask_kernel), so a lane tests its planes' bits of one word.
+//   into keys_t [groups, n, kw] (transpose_kernel; for P = 32 that is the
+//   [n, 32] transpose), kw = max(4, W) columns, so the planes of one
+//   slot's source are one 128-byte line for G = 32. A lane takes four
+//   planes of a slot with one 16-byte load, so a warp works on 128 / kw
+//   slots at a time and spends a quarter of the instructions per slot
+//   that a lane per plane would (those instructions, not the gathers,
+//   bounded the lane-per-plane form on the card). Groups narrower than
+//   four planes read padded columns that no lane uses. The hub bits of
+//   the row's destination block are packed into one word per vertex in
+//   shared memory. A per-plane mask [P, E2] is first packed into words
+//   [groups, E2] (pack_mask_kernel), so a lane tests its planes' bits of
+//   one word.
 // - The row's src/dstloc/perm/slot streams are staged into shared memory
 //   in double-buffered chunks with cp.async: the next chunk's copies are
 //   in flight while the current chunk's keys are gathered. Each lane
@@ -154,19 +156,19 @@ __device__ __forceinline__ RowInfo row_info(const int* rowblk_t,
           prev || next, !prev};
 }
 
-// keys [P, n] -> keys_t [groups, n, gs]: the planes of each group
-// vertex-major, padded to gs = 2^ceil(log2 group) columns (the padding is
-// never read as a key). Through a padded 32 x 32 tile whose rows are the
-// groups' padded columns ("virtual planes" q = grp * gs + c).
+// keys [P, n] -> keys_t [groups, n, kw]: the planes of each group
+// vertex-major, padded to kw = max(4, 2^ceil(log2 group)) columns (the
+// padding is never used as a key). Through a padded 32 x 32 tile whose
+// rows are the groups' padded columns ("virtual planes" q = grp * kw + c).
 __global__ void transpose_kernel(const int* __restrict__ keys,
                                  int* __restrict__ keys_t, int planes,
-                                 int group, int gs_log2, int groups, int n) {
+                                 int group, int kw_log2, int groups, int n) {
   __shared__ int t[32][33];
   const long long v0 = static_cast<long long>(blockIdx.x) * 32;
   const int q0 = blockIdx.y * 32;
-  const int gs = 1 << gs_log2, vplanes = groups << gs_log2;
+  const int kw = 1 << kw_log2, vplanes = groups << kw_log2;
   for (int dy = threadIdx.y; dy < 32; dy += blockDim.y) {
-    const int q = q0 + dy, grp = q >> gs_log2, c = q & (gs - 1);
+    const int q = q0 + dy, grp = q >> kw_log2, c = q & (kw - 1);
     const int p = grp * group + c;
     const long long v = v0 + threadIdx.x;
     t[dy][threadIdx.x] =
@@ -177,9 +179,9 @@ __global__ void transpose_kernel(const int* __restrict__ keys,
   __syncthreads();
   for (int dy = threadIdx.y; dy < 32; dy += blockDim.y) {
     const long long v = v0 + dy;
-    const int q = q0 + threadIdx.x, grp = q >> gs_log2, c = q & (gs - 1);
+    const int q = q0 + threadIdx.x, grp = q >> kw_log2, c = q & (kw - 1);
     if (q < vplanes && v < n)
-      keys_t[(static_cast<long long>(grp) * n + v) * gs + c] =
+      keys_t[(static_cast<long long>(grp) * n + v) * kw + c] =
           t[threadIdx.x][dy];
   }
 }
@@ -243,23 +245,9 @@ __global__ void fill_chunked_kernel(int* __restrict__ out,
   }
 }
 
-// V consecutive keys of one vertex (V = 1, 2 or 4 ints, one load).
-template <int V>
-__device__ __forceinline__ void load_keys(const int* p, int (&k)[V]) {
-  if constexpr (V == 4) {
-    const int4 x = *reinterpret_cast<const int4*>(p);
-    k[0] = x.x, k[1] = x.y, k[2] = x.z, k[3] = x.w;
-  } else if constexpr (V == 2) {
-    const int2 x = *reinterpret_cast<const int2*>(p);
-    k[0] = x.x, k[1] = x.y;
-  } else {
-    k[0] = *p;
-  }
-}
-
 // One CTA per (tile row, plane group); lane (sub, li) works on planes
-// g0 + li*V .. g0 + li*V + V - 1 of the warp's sub-th slot of each step.
-template <int V>
+// g0 + 4 li .. g0 + 4 li + 3 of the warp's sub-th slot of each step. The
+// tile has gs = 2^gs_log2 columns, the key copy kw = max(4, gs).
 __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
     const int* __restrict__ keys_t, const uint8_t* __restrict__ hub,
     const int* __restrict__ src_t, const int* __restrict__ dstloc_t,
@@ -269,7 +257,7 @@ __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
     int* __restrict__ out, int planes, int group, int gs_log2, int groups,
     int n, long long e2, int rows_per_shard, int be, int block_v, int nb,
     int step, int inf, int clear, int vec) {
-  const int gs = 1 << gs_log2, gmask = gs - 1;
+  const int gs = 1 << gs_log2, gmask = gs - 1, kw = max(4, gs);
   extern __shared__ __align__(16) int smem[];
   int* stage = smem;                             // [2][kStreams][kChunk]
   int* tile = smem + 2 * kStreams * kChunk;      // [block_v][gs]
@@ -305,16 +293,18 @@ __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
     hubw[i] = bits;
   }
 
-  const int lanes_per_slot = gs / V;  // 1 .. 8
+  const int lanes_per_slot = kw / 4;  // 1 .. 8
   const int per_warp = 32 / lanes_per_slot;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane / lanes_per_slot;
-  const int c0 = (lane - sub * lanes_per_slot) * V;  // first plane in group
-  // The lane's planes that exist, one bit each (bit k: plane c0 + k).
+  const int c0 = (lane - sub * lanes_per_slot) * 4;  // first plane in group
+  // The lane's planes that exist, one bit each (bit k: plane c0 + k); a
+  // group narrower than four planes leaves the high bits clear, so its
+  // lanes never touch a tile column past gs.
   const uint32_t mine =
-      ((gcur >= 32 ? 0xffffffffu : (1u << gcur) - 1) >> c0) & ((1u << V) - 1);
+      ((gcur >= 32 ? 0xffffffffu : (1u << gcur) - 1) >> c0) & 0xfu;
   const int step_slots = per_warp * (kThreads / 32);
-  const int* keys_g = keys_t + static_cast<long long>(grp) * n * gs + c0;
+  const int* keys_g = keys_t + static_cast<long long>(grp) * n * kw + c0;
   const uint32_t* words_g =
       mask_words != nullptr ? mask_words + grp * e2 : nullptr;
 
@@ -336,7 +326,8 @@ __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
     if (mine != 0) {
       for (int j0 = warp * per_warp + sub; j0 < len;
            j0 += kUnroll * step_slots) {
-        int wv[kUnroll], key[kUnroll][V];
+        int wv[kUnroll];
+        int4 key[kUnroll];
         uint32_t live[kUnroll];
         // The mask, weight and keys of kUnroll slots: every gather of the
         // step in flight at once. Masked-off planes' keys are read too.
@@ -345,15 +336,14 @@ __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
           const int j = j0 + u * step_slots;
           live[u] = 0;
           wv[u] = 0;
-#pragma unroll
-          for (int q = 0; q < V; ++q) key[u][q] = 0;
+          key[u] = make_int4(0, 0, 0, 0);
           if (j < len && c_slot[j] != 0) {
             const int perm = c_perm[j];
             live[u] = words_g != nullptr ? (words_g[perm] >> c0) & mine
                                          : (mask[perm] != 0 ? mine : 0u);
             wv[u] = w[perm];
-            load_keys<V>(keys_g + static_cast<long long>(c_src[j]) * gs,
-                         key[u]);
+            key[u] = *reinterpret_cast<const int4*>(
+                keys_g + static_cast<long long>(c_src[j]) * kw);
           }
         }
 #pragma unroll
@@ -364,10 +354,11 @@ __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
           const long long sw = static_cast<long long>(step) * wv[u];
           int* cell = tile + dl * gs;
           const int swz = dl & gmask;
+          const int k4[4] = {key[u].x, key[u].y, key[u].z, key[u].w};
 #pragma unroll
-          for (int q = 0; q < V; ++q) {
+          for (int q = 0; q < 4; ++q) {
             if (!((live[u] >> q) & 1)) continue;
-            const long long sum = key[u][q] + sw;
+            const long long sum = k4[q] + sw;
             int cand = sum < inf ? static_cast<int>(sum) : inf;
             if ((hubs >> q) & 1) cand &= ~clear;
             atomicMin(cell + ((c0 + q) ^ swz), cand);
@@ -392,43 +383,16 @@ __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
   }
 }
 
-// The sweep kernel for V planes per lane, with its shared memory opted in.
-template <int V>
-int launch_sweep(unsigned grid, int smem_bytes, cudaStream_t s,
-                 const int* keys_t, const uint8_t* hub, const int* src_t,
-                 const int* dstloc_t, const int* perm_t, const int* slot_t,
-                 const int* rowblk_t, const uint8_t* mask,
-                 const uint32_t* mask_words, const int* w, int* out,
-                 int planes, int group, int gs_log2, int groups, int n,
-                 long long e2, int rows_per_shard, int be, int block_v,
-                 int nb, int step, int inf, int clear, int vec) {
-  if (cudaError_t err = cudaFuncSetAttribute(
-          relax_sweep_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem_bytes))
-    return static_cast<int>(err);
-  if (cudaError_t err = cudaFuncSetAttribute(
-          relax_sweep_kernel<V>,
-          cudaFuncAttributePreferredSharedMemoryCarveout,
-          cudaSharedmemCarveoutMaxShared))
-    return static_cast<int>(err);
-  relax_sweep_kernel<V><<<grid, kThreads, smem_bytes, s>>>(
-      keys_t, hub, src_t, dstloc_t, perm_t, slot_t, rowblk_t, mask,
-      mask_words, w, out, planes, group, gs_log2, groups, n, e2,
-      rows_per_shard, be, block_v, nb, step, inf, clear, vec);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Launches the sweep's kernels on `stream`: the key transpose (skipped
-// when keys_t == keys, as for P = 1), the per-plane mask pack (when
-// mask_per_plane), the `inf` fill of chunked blocks and the sweep.
-// Returns the first CUDA error (0 on success).
+// Launches the sweep's kernels on `stream`: the key transpose, the
+// per-plane mask pack (when mask_per_plane), the `inf` fill of chunked
+// blocks and the sweep. Returns the first CUDA error (0 on success).
 //
-// keys [P, n]; keys_t [n, P] scratch; hub [P, n] or null; tiles
-// [S * NR, be]; rowblk_t [S * NR]; mask [P, E2] when mask_per_plane, else
-// [E2]; mask_words [groups, E2] scratch when mask_per_plane; w [E2];
-// out [P, n], written in full. `group` planes per CTA (the last group may
+// keys [P, n]; keys_t [groups, n, max(4, 2^ceil(log2 group))] scratch;
+// hub [P, n] or null; tiles [S * NR, be]; rowblk_t [S * NR]; mask [P, E2]
+// when mask_per_plane, else [E2]; mask_words [groups, E2] scratch when
+// mask_per_plane; w [E2]; out [P, n], written in full. `group` planes per CTA (the last group may
 // hold fewer); `smem_bytes` the sweep CTA's dynamic shared memory.
 extern "C" int relax_sweep_launch(
     const int* keys, const uint8_t* hub, const int* src_t,
@@ -443,13 +407,12 @@ extern "C" int relax_sweep_launch(
   const int groups = (planes + group - 1) / group;
   int gs_log2 = 0;
   while ((1 << gs_log2) < group) ++gs_log2;
+  const int kw_log2 = max(2, gs_log2);
 
-  if (keys_t != keys) {
-    const dim3 grid((n + 31) / 32, ((groups << gs_log2) + 31) / 32);
-    transpose_kernel<<<grid, dim3(32, 8), 0, s>>>(keys, keys_t, planes, group,
-                                                  gs_log2, groups, n);
-    if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  }
+  const dim3 tgrid((n + 31) / 32, ((groups << kw_log2) + 31) / 32);
+  transpose_kernel<<<tgrid, dim3(32, 8), 0, s>>>(keys, keys_t, planes, group,
+                                                 kw_log2, groups, n);
+  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
   if (mask_per_plane && e2 > 0) {
     const long long quads = (e2 + 3) / 4;
     const dim3 grid(static_cast<unsigned>((quads + kThreads - 1) / kThreads),
@@ -475,13 +438,17 @@ extern "C" int relax_sweep_launch(
         reinterpret_cast<uintptr_t>(perm_t) |
         reinterpret_cast<uintptr_t>(slot_t)) &
        15) == 0;
-  const int per_lane = gs_log2 >= 2 ? 4 : 1 << gs_log2;
-  const auto sweep = per_lane == 4   ? launch_sweep<4>
-                     : per_lane == 2 ? launch_sweep<2>
-                                     : launch_sweep<1>;
-  return sweep(static_cast<unsigned>(grid), smem_bytes, s, keys_t, hub,
-               src_t, dstloc_t, perm_t, slot_t, rowblk_t, mask,
-               mask_per_plane ? mask_words : nullptr, w, out, planes, group,
-               gs_log2, groups, n, e2, rows_per_shard, be, block_v, nb, step,
-               inf, clear, vec);
+  if (cudaError_t err = cudaFuncSetAttribute(
+          relax_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem_bytes))
+    return static_cast<int>(err);
+  if (cudaError_t err = cudaFuncSetAttribute(
+          relax_sweep_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared))
+    return static_cast<int>(err);
+  relax_sweep_kernel<<<static_cast<unsigned>(grid), kThreads, smem_bytes, s>>>(
+      keys_t, hub, src_t, dstloc_t, perm_t, slot_t, rowblk_t, mask,
+      mask_per_plane ? mask_words : nullptr, w, out, planes, group, gs_log2,
+      groups, n, e2, rows_per_shard, be, block_v, nb, step, inf, clear, vec);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -19,8 +19,8 @@ raises. They replace the Pallas `_relax_sweep_kernel` and its row fold
 is one vmapped `pallas_call`. The kernel walks each tile row once for a
 group of up to 32 planes (`plane_group` sizes the group to the shared
 memory) and reads the keys through a vertex-major copy that it makes
-itself ([groups, n, group_width]; [n, 32] for 32 planes); the arguments
-and the result stay plane-major [P, n].
+itself ([groups, n, max(4, group_width)]; [n, 32] for 32 planes); the
+arguments and the result stay plane-major [P, n].
 
 `edge_relax` is the legacy sweep of one plane with its validity baked
 into the tiles at prepare time (`ops.prepare`) and no weight or hub:
@@ -296,11 +296,12 @@ def relax_sweep(keys: torch.Tensor, hub: torch.Tensor | None,
     dev = keys.device
     groups = -(-p // group)
     # The kernel writes every entry of `out`. keys_t and mask_words are
-    # its scratch: each group's keys vertex-major [groups, n, width], and
-    # a per-plane mask as one bit per plane [groups, E2].
+    # its scratch: each group's keys vertex-major, at least four columns
+    # wide (a lane loads four planes at once), and a per-plane mask as one
+    # bit per plane [groups, E2].
     out = torch.empty((p, n), dtype=torch.int32, device=dev)
-    keys_t = keys if p == 1 else torch.empty(
-        (groups, n, group_width(group)), dtype=torch.int32, device=dev)
+    keys_t = torch.empty((groups, n, max(4, group_width(group))),
+                         dtype=torch.int32, device=dev)
     per_plane = mask.dim() == 2
     mask_words = torch.empty((groups, e2) if per_plane else (0,),
                              dtype=torch.int32, device=dev)

@@ -1,11 +1,11 @@
 """Edge cases of the relax sweep (kernel A), made from a seed with numpy.
 
-Each named case is a list of `SweepInput`s: a graph's edge slots, the
-tiling to prepare them with (block_v, shards, block_e) and one sweep's
-keys, hub, mask, weights and parameter set. The same cases hold the CUDA
-kernel to its plain version (`tests/test_torch_cuda.py`, phase 2 of
-`chip_smoke.py`) and the plain version to the JAX reference
-(`tests/test_torch_sweep.py`). They cover plane counts that are not a
+Test support, not a test module: `tests/test_torch_cuda.py` and phase 2
+of `chip_smoke.py` hold the CUDA kernel to its plain version on these
+cases, and `tests/test_torch_sweep.py` holds the plain version to the JAX
+reference on them. Each named case is a list of `SweepInput`s: a graph's
+edge slots, the tiling to prepare them with (block_v, shards, block_e)
+and one sweep's keys, hub, mask, weights and parameter set. They cover plane counts that are not a
 multiple of the kernel's plane group, every `block_v` up to the largest
 the first kernel took, chunked rows, shards, shared and per-plane masks
 with E2 % 4 in {0, 2}, hub None and set, keys that saturate, an
@@ -80,29 +80,29 @@ def _planes_block_v(p: int, block_v: int, max_edges: int):
                    **tiling)]
 
 
-def _rows(block_e: int | None, shards: int):
-    """Chunked rows and shards at P = 33 (two plane groups): every
-    parameter set with hub None/set and mask shared/per-plane, then an
-    empty mask."""
+def _rows(block_e: int | None, shards: int, p: int):
+    """Chunked rows and shards at P = 33 (two plane groups), or its first
+    three planes (one group): every parameter set with hub None/set and
+    mask shared/per-plane, then an empty mask."""
     rng = np.random.default_rng(100 + 10 * (block_e or 0) + shards)
-    n, p = 61, 33
+    n = 61
     src, dst, keep, w = _graph(rng, n, 240)
-    masks = keep & (rng.random((p, len(src))) < 0.85)
-    hub = rng.random((p, n)) < 0.3
+    masks = (keep & (rng.random((33, len(src))) < 0.85))[:p]
+    hub = (rng.random((33, n)) < 0.3)[:p]
     tiling = dict(src=src, dst=dst, keep=keep, n=n, block_v=16,
                   shards=shards, block_e=block_e, w=w)
     out = []
     for step, inf, clear in PARAMS:
-        keys = _keys(rng, p, n, inf)
+        keys = _keys(rng, 33, n, inf)[:p]
         for h in (None, hub):
             for m in (masks[0], masks):
                 out.append(SweepInput(
                     label=f"step={step} hub={h is not None} "
                           f"mask={m.shape}", keys=keys, hub=h, mask=m,
                     step=step, inf=inf, clear=clear, **tiling))
-    out.append(SweepInput(label="empty mask", keys=keys, hub=hub,
-                          mask=np.zeros_like(keep), step=4, inf=INF_KEY4,
-                          clear=2, **tiling))
+        out.append(SweepInput(label=f"step={step} empty mask", keys=keys,
+                              hub=hub, mask=np.zeros_like(keep), step=step,
+                              inf=inf, clear=clear, **tiling))
     return out
 
 
@@ -189,7 +189,8 @@ def _short_last_shard():
 def names() -> list[str]:
     """Every case name, in a fixed order."""
     return ([f"planes{p}-bv{bv}" for p in PLANES for bv in BLOCK_VS]
-            + [f"rows-be{be}-s{s}" for be in BLOCK_ES for s in SHARDS]
+            + [f"rows-be{be}-s{s}-p{p}" for be in BLOCK_ES for s in SHARDS
+               for p in (3, 33)]
             + [f"mask-{k}-e2mod{r}" for k in ("shared", "perplane")
                for r in (0, 2)]
             + ["near-inf", "all-masked", "zero-capacity",
@@ -203,8 +204,9 @@ def make(name: str, max_edges: int = 1 << 16) -> list[SweepInput]:
         p, bv = name[len("planes"):].split("-bv")
         return _planes_block_v(int(p), int(bv), max_edges)
     if name.startswith("rows"):
-        be, s = name[len("rows-be"):].split("-s")
-        return _rows(None if be == "None" else int(be), int(s))
+        be, s, p = name[len("rows-be"):].replace("-s", " ").replace(
+            "-p", " ").split()
+        return _rows(None if be == "None" else int(be), int(s), int(p))
     if name.startswith("mask"):
         _, kind, r = name.split("-")
         return _mask(kind == "perplane", int(r[len("e2mod"):]))

@@ -20,10 +20,9 @@ import torch
 
 from repro_torch import api
 from repro_torch.core.engine import WAVES, RelaxEngine
-from repro_torch.core.labelling import INF_KEY2, INF_KEY4
+from repro_torch.core.labelling import INF_KEY2
 from repro_torch.graphs import generators as gen
 from repro_torch.graphs.coo import INF_D
-from repro_torch.kernels.edge_relax import cases
 from repro_torch.kernels.edge_relax import kernel as rk
 from repro_torch.kernels.edge_relax import ops as rops
 from repro_torch.kernels.edge_relax import ref as rref
@@ -31,7 +30,7 @@ from repro_torch.kernels.embed_bag import kernel as ek
 from repro_torch.kernels.embed_bag import ops as eops
 from repro_torch.kernels.minplus import kernel as mk
 
-PARAMS = [(1, INF_D, 0), (2, INF_KEY2, 1), (4, INF_KEY4, 2)]
+import _sweep_cases as cases
 
 
 @pytest.fixture
@@ -52,70 +51,14 @@ def _sweep_equal(bg, keys, hub, mask, w, step, inf, clear):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("step,inf,clear", PARAMS)
-@pytest.mark.parametrize("block_e,shards", [(None, 1), (7, 2), (1, 3)])
-def test_relax_sweep_kernel_matches_plain(dev, step, inf, clear, block_e,
-                                          shards):
-    rng = np.random.default_rng(step * 10 + shards)
-    n, m, p = 61, 240, 3
-    src = rng.integers(0, n, m).astype(np.int32)
-    dst = rng.integers(0, n, m).astype(np.int32)
-    keep = rng.random(m) < 0.8
-    masks = torch.from_numpy(keep & (rng.random((p, m)) < 0.85)).to(dev)
-    w = torch.from_numpy(rng.integers(1, 9, m).astype(np.int32)).to(dev)
-    hub = torch.from_numpy(rng.random((p, n)) < 0.3).to(dev)
-    keys = torch.from_numpy(rng.integers(0, inf, (p, n), endpoint=True)
-                            .astype(np.int32)).to(dev)
-    bg = rops.prepare_topology(src, dst, keep, n, 16, shards, block_e,
-                               device=dev)
-    for h in (None, hub):
-        for mask in (masks[0].contiguous(), masks):
-            _sweep_equal(bg, keys, h, mask, w, step, inf, clear)
-    _sweep_equal(bg, keys, hub, torch.zeros_like(masks[0]), w, step, inf,
-                 clear)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("step,inf,clear", PARAMS)
-def test_relax_sweep_kernel_near_inf(dev, step, inf, clear):
-    """Keys step·INF_D + step − 1 through w = INF_D edges: the sum passes
-    2^31 at step 4 and must saturate, then hub-clear below inf."""
-    n = 6
-    src = np.array([0, 1, 2, 3], np.int32)
-    dst = np.array([1, 2, 3, 4], np.int32)
-    keep = np.ones(4, bool)
-    bg = rops.prepare_topology(src, dst, keep, n, 4, 1, None, device=dev)
-    keys = torch.full((1, n), step * INF_D + step - 1, dtype=torch.int32,
-                      device=dev)
-    hub = torch.tensor([[False, True, False, True, False, False]],
-                       device=dev)
-    _sweep_equal(bg, keys, hub, torch.from_numpy(keep).to(dev),
-                 torch.full((4,), INF_D, dtype=torch.int32, device=dev),
-                 step, inf, clear)
-
-
-@pytest.mark.cuda
-def test_relax_sweep_kernel_short_last_shard(dev):
-    n = 24
-    rng = np.random.default_rng(0)
-    dst = np.array([1, 9, 16, 17, 18, 19, 20, 21, 2, 10], np.int32)
-    src = rng.integers(0, n, len(dst)).astype(np.int32)
-    keep = np.ones(len(dst), bool)
-    bg = rops.prepare_topology(src, dst, keep, n, 8, 2, 4, device=dev)
-    assert bg.chunked and bg.src_t.shape[1] == bg.nb
-    keys = torch.from_numpy(rng.integers(0, 2 * n, (2, n)).astype(np.int32))
-    _sweep_equal(bg, keys.to(dev), None, torch.from_numpy(keep).to(dev),
-                 torch.ones(len(dst), dtype=torch.int32, device=dev), 1,
-                 1 << 29, 0)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("name", cases.names())
 def test_relax_sweep_kernel_edge_cases(dev, name):
-    """Every sweep of each edge case of `kernels/edge_relax/cases.py`:
+    """Every sweep of each edge case of `tests/_sweep_cases.py`:
     P in {1, 3, 31, 32, 33, 100, 1024} × block_v in {4, ..., 12288},
-    block_e in {None, 1, 7} × S in {1, 2, 3}, shared and per-plane masks
-    with E2 % 4 in {0, 2}, near-INF keys, all-masked, zero capacity."""
+    block_e in {None, 1, 7} × S in {1, 2, 3} at P in {3, 33} with every
+    parameter set, hub and mask kind, shared and per-plane masks with
+    E2 % 4 in {0, 2}, near-INF keys, all-masked, zero capacity and the
+    short last shard."""
     for c in cases.make(name):
         args = cases.sweep_args(c, dev)
         before = rk.launches

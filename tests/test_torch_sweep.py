@@ -6,7 +6,7 @@ what the wrapper runs for CPU tensors) and the port's COO reference
 `relax_sweep_pallas` (interpret mode) and its jnp engine branch, over the
 three parameter sets, ragged `block_e`, the short-last-shard tiling,
 near-INF weights, an empty mask, per-plane and shared masks and P > 1
-planes. Every edge case of `kernels/edge_relax/cases.py` (plane counts up
+planes. Every edge case of `tests/_sweep_cases.py` (plane counts up
 to 1024 and block_v up to 12288 among them) is held to the reference
 too, and the kernel's plane-group sizing is checked on its own. The host
 tiling arrays and the engine's fingerprint and plan cache are compared
@@ -27,9 +27,10 @@ from repro.kernels.edge_relax import ops as jops
 from repro_torch.core import engine as teng
 from repro_torch.graphs.coo import INF_D, Graph as TGraph
 from repro_torch.core.labelling import INF_KEY2, INF_KEY4
-from repro_torch.kernels.edge_relax import cases
 from repro_torch.kernels.edge_relax import kernel as tker
 from repro_torch.kernels.edge_relax import ops as tops
+
+import _sweep_cases as cases
 
 PARAMS = [(1, INF_D, 0), (2, INF_KEY2, 1), (4, INF_KEY4, 2)]
 
