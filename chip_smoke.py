@@ -10,9 +10,10 @@
 2. Holds each kernel to its plain PyTorch version on the card: the three
    integer kernels with `torch.equal`, the embedding bag to rtol = atol =
    1e-5 (float32 sums in another order), over each kernel's edge cases
-   (for the relax sweep, every case of `tests/_sweep_cases.py`, as
-   `tests/test_torch_cuda.py` runs them, and the block_v limit's
-   ValueError).
+   (for the relax sweep every case of `tests/_sweep_cases.py`, for
+   min-plus and the legacy edge relax every case of
+   `tests/_kernel_cases.py`, as `tests/test_torch_cuda.py` runs them; and
+   the ValueError of each block_v limit).
 3. Drives the port's main path through `repro_torch.api` at full size:
    Barabási–Albert(2^20, m=4, seed 0), capacity 2^23 edges, 32 landmarks;
    build; one mixed BHL⁺ tick of 512 inserts + 512 deletes; 1024 uniform
@@ -40,10 +41,14 @@
    time of each of its kernels — key transpose, mask pack, `inf` fill,
    sweep — from one `torch.profiler` pass); one query microbatch under
    `torch.profiler` (device-busy ms, against the same call's median host
-   ms timed without the profiler for the idle share); the
-   legacy edge relax through
-   `ops.prepare` / `ops.edge_relax` on the post-update graph (also held
-   to the COO oracle `ref.edge_relax`); the embedding bag through
+   ms timed without the profiler for the idle share), and its plan-cache
+   hit (`RelaxEngine.prepare` of the queried snapshot: device ms, host
+   syncs, and the fingerprint's kernels alone); min-plus also by its own
+   device microseconds under the profiler, beside a launch floor (a
+   one-element fill profiled the same way); the legacy edge relax
+   through `ops.prepare` / `ops.edge_relax` on the post-update graph
+   (also held to the COO oracle `ref.edge_relax`; device ms of its
+   `inf` fill and its sweep); the embedding bag through
    `ops.embed_bag` at the MIND config's widths (10,485,760 × 64 float32
    table, bags of 50, batches of 512 and 65,536), beside
    `torch.nn.functional.embedding_bag` as the library yardstick. Each of
@@ -181,6 +186,59 @@ def sweep_parts(per: dict) -> dict:
     return out
 
 
+def profiled_us(torch, fn, match: str, reps: int = 20) -> float:
+    """Mean device microseconds per call of `fn()` (already warm) over
+    `reps` calls under `torch.profiler`, counting the device kernels whose
+    name contains `match` ("" counts them all)."""
+    per = device_kernels(torch, lambda: [fn() for _ in range(reps)])[0]
+    return sum(v[0] for k, v in per.items() if match in k) * 1e3 / reps
+
+
+def host_syncs(torch, fn) -> int:
+    """The synchronising CUDA calls `fn()` makes, counted by the warnings
+    of `torch.cuda.set_sync_debug_mode`."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def profile_prepare_hit(torch, engine, g) -> dict:
+    """What a plan-cache hit costs the query path: the device ms and host
+    syncs of `engine.prepare(g)` once g's plan is cached (the fingerprint
+    and the check that the plan holds every live slot), beside the
+    fingerprint's kernels alone, which are all the hit ran on the device
+    before that check existed (it synced twice then)."""
+    from repro_torch.core.engine import RelaxEngine
+    engine.prepare(g)
+    hits = engine.plan_cache_hits
+    per, busy, _ = device_kernels(torch, lambda: engine.prepare(g))
+    fp_per, fp_busy, _ = device_kernels(
+        torch, lambda: RelaxEngine.snapshot_fingerprint(g))
+    syncs = [host_syncs(torch, lambda: engine.prepare(g)) for _ in range(3)]
+    if engine.plan_cache_hits != hits + 4:
+        raise AssertionError("prepare of a cached snapshot was not a hit")
+    # One `.item()`, to read the count in transfers (the mode may warn
+    # more than once for one).
+    per_item = host_syncs(torch, lambda: g.valid[:1].sum().item())
+    out = dict(device_ms=busy, launches=sum(v[1] for v in per.values()),
+               fingerprint_device_ms=fp_busy,
+               fingerprint_launches=sum(v[1] for v in fp_per.values()),
+               sync_warnings=syncs, sync_warnings_per_item=per_item,
+               cached_plans=len(engine._plans))
+    log(f"prepare hit ({out['cached_plans']} cached plans): device "
+        f"{busy:.4f} ms in {out['launches']} launches, {syncs} sync "
+        f"warnings in three calls ({per_item} for one .item()); the "
+        f"fingerprint alone "
+        f"{fp_busy:.4f} ms in {out['fingerprint_launches']} launches")
+    return out
+
+
 def profile_query(torch, api, g, lab, s, t, reps: int = 7) -> dict:
     """One query microbatch (already warm): its median host ms over `reps`
     runs without the profiler, then one run under it for the device-busy
@@ -218,6 +276,7 @@ def profile_query(torch, api, g, lab, s, t, reps: int = 7) -> dict:
 # --- phase 2: each kernel against its plain version -------------------------
 
 def check_kernels_small(torch, np, dev) -> int:
+    import _kernel_cases as kernel_cases
     import _sweep_cases as sweep_cases
     from repro_torch.kernels.edge_relax import kernel as rk
     from repro_torch.kernels.minplus import kernel as mk
@@ -248,62 +307,54 @@ def check_kernels_small(torch, np, dev) -> int:
         raise AssertionError(f"relax_sweep took block_v={limit + 1}")
     cases += 1
 
-    def t(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-    rng = np.random.default_rng(0)
-    # Min-plus: B in {1, 32, 1024} at R = 32, and a rectangular [8, 32] H.
-    for b, p, r in ((1, 32, 32), (32, 32, 32), (1024, 32, 32),
-                    (256, 8, 32)):
-        def draw(shape):
-            x = rng.integers(0, 64, shape).astype(np.int32)
-            x[rng.random(shape) < 0.2] = 1 << 29
-            return t(x)
-        s, h, tt = draw((b, p)), draw((p, r)), draw((b, r))
+    # Min-plus over every case of tests/_kernel_cases.py.
+    for name in kernel_cases.minplus_names():
+        s, h, tt = (torch.from_numpy(x).to(dev)
+                    for x in kernel_cases.minplus_case(name))
         got = mk.minplus(s, h, tt)
         torch.cuda.synchronize()
         if not torch.equal(got, mk.minplus_plain(s, h, tt)):
-            raise AssertionError(f"minplus != plain at B={b} P={p} R={r}")
+            raise AssertionError(f"minplus != plain: {name} "
+                                 f"(S {tuple(s.shape)}, H {tuple(h.shape)})")
         cases += 1
-    return cases + check_edge_relax_small(torch, np, dev, rng) \
+    rng = np.random.default_rng(0)
+    return cases + check_edge_relax_small(torch, dev) \
         + check_embed_bag_small(torch, np, dev, rng)
 
 
-def check_edge_relax_small(torch, np, dev, rng) -> int:
-    """Kernel C against its plain version, bit for bit."""
+def check_edge_relax_small(torch, dev) -> int:
+    """Kernel C against its plain version and the COO oracle, bit for bit,
+    over every case of tests/_kernel_cases.py; one block_v past its limit
+    raises."""
+    import _kernel_cases as kernel_cases
     from repro_torch.kernels.edge_relax import kernel as rk
-    from repro_torch.kernels.edge_relax import ops as rops
+    from repro_torch.kernels.edge_relax import ref as rref
     cases = 0
-    n, m = 61, 240
-    src = rng.integers(0, n, m).astype(np.int32)
-    dst = rng.integers(0, n, m).astype(np.int32)
-    valid = rng.random(m) < 0.8
-    keys = {
-        "small": rng.integers(0, 1 << 20, n),
-        "near INF32 and 2^31-1": np.where(
-            rng.random(n) < 0.5, 2**31 - 1 - rng.integers(0, 4, n),
-            (1 << 29) - rng.integers(0, 4, n)),
-    }
-    for be in (None, 7):
-        for shards in (1, 2):
-            for what, vmask in (("valid", valid),
-                                ("all-invalid", np.zeros(m, bool))):
-                bg = rops.prepare(src, dst, vmask, n, 16, shards, be,
-                                  device=dev)
-                for kname, k in keys.items():
-                    k = torch.from_numpy(k.astype(np.int32)).to(dev)
-                    for step in (1, 2, 4):
-                        args = (k, bg.src_t, bg.dstloc_t, bg.valid_t,
-                                bg.rowblk_t, step, n, bg.block_v, bg.nb)
-                        got = rk.edge_relax(*args)
-                        torch.cuda.synchronize()
-                        if not torch.equal(got, rk.edge_relax_plain(*args)):
-                            raise AssertionError(
-                                f"edge_relax != plain: block_e={be} "
-                                f"shards={shards} {what} keys={kname} "
-                                f"step={step}")
-                        cases += 1
-    return cases
+    for name in kernel_cases.edge_relax_names():
+        for c in kernel_cases.edge_relax_case(name):
+            for step in kernel_cases.STEPS:
+                args = kernel_cases.edge_relax_args(c, step, dev)
+                got = rk.edge_relax(*args)
+                torch.cuda.synchronize()
+                coo = rref.edge_relax(*(torch.from_numpy(x).to(dev) for x in
+                                        (c.keys, c.src, c.dst, c.valid)),
+                                      step, c.n)
+                if not (torch.equal(got, rk.edge_relax_plain(*args))
+                        and torch.equal(got, coo)):
+                    raise AssertionError(f"edge_relax != plain / COO: {name}"
+                                         f" {c.label} step={step}")
+                cases += 1
+    limit = rk.EDGE_RELAX_MAX_BLOCK_V
+    c = dataclasses.replace(kernel_cases.edge_relax_case("near-inf")[0],
+                            block_v=limit + 1)
+    try:
+        rk.edge_relax(*kernel_cases.edge_relax_args(c, 1, dev))
+    except ValueError as err:
+        if f"block_v <= {limit}" not in str(err):
+            raise
+    else:
+        raise AssertionError(f"edge_relax took block_v={limit + 1}")
+    return cases + 1
 
 
 def check_embed_bag_small(torch, np, dev, rng) -> int:
@@ -515,6 +566,8 @@ def time_edge_relax(torch, dev, g1, lab1) -> dict:
         raise AssertionError("edge_relax at full size != plain / COO oracle")
     ms, plain = paired_ms(lambda: rk.edge_relax(*args),
                           lambda: rk.edge_relax_plain(*args), 10, 3)
+    parts = {k: profiled_us(torch, lambda: rk.edge_relax(*args), k, 10) / 1e3
+             for k in ("fill_chunked_kernel", "edge_relax_kernel")}
     rows = bg.rowblk_t.numel()
     live = int((bg.valid_t != 0).sum())
     # What this run's data needs: valid_t of every slot, src and local dst
@@ -523,12 +576,13 @@ def time_edge_relax(torch, dev, g1, lab1) -> dict:
     bms, by = bound_ms(nbytes, 3 * live)   # add, saturate, min per slot
     row = dict(rows=rows, slots=bg.slots, valid_slots=live,
                prepare_s=prep_s, launches=launches, max_abs_err=err, ms=ms,
-               plain_ms=plain, bound_ms=bms, bound_by=by, bytes=nbytes)
+               plain_ms=plain, bound_ms=bms, bound_by=by, bytes=nbytes,
+               device_ms=parts)
     log(f"edge_relax (ops.prepare of every slot, block_v={api.BLOCK_V} "
         f"block_e={api.BLOCK_E}): {rows} rows, {bg.slots} slots "
         f"({live} valid), host prepare {prep_s:.3f} s; kernel {ms:.3f} ms, "
         f"plain {plain:.3f} ms, bound {bms:.4f} ms ({by}), max_abs_err {err}"
-        f"; == COO oracle")
+        f"; == COO oracle; device ms of one call {parts}")
     return row
 
 
@@ -838,10 +892,17 @@ def main() -> int:
             f"{err}; device ms of one call {parts}")
     del bou_mask, int_mask, perm_live
 
-    # One query microbatch under the profiler: how busy the card is.
+    # One query microbatch under the profiler: how busy the card is, and
+    # what its plan-cache hit (the default engine's prepare of g1) costs.
     q_prof = profile_query(torch, api, g1, lab1, qs[:MICROBATCH],
                            qt[:MICROBATCH])
+    q_prof["prepare_hit"] = profile_prepare_hit(
+        torch, api.default_engine(g1.device), g1)
 
+    # The launch floor: a one-element fill, profiled as the kernels are.
+    one = torch.empty(1, dtype=torch.int32, device=dev)
+    one.fill_(0)
+    floor_us = profiled_us(torch, lambda: one.fill_(0), "")
     mp_rows = []
     lab_eff = tq.effective_labels(lab1)
     for b in (1024, 32):
@@ -858,12 +919,20 @@ def main() -> int:
             raise AssertionError(f"minplus != plain at B={b}")
         ms, plain = paired_ms(lambda: mk.minplus(s, h, t),
                               lambda: mk.minplus_plain(s, h, t), 50, 20)
+        kernel_us = profiled_us(torch, lambda: mk.minplus(s, h, t),
+                                "minplus_kernel")
+        plain_us = profiled_us(torch, lambda: mk.minplus_plain(s, h, t), "")
         r = h.shape[0]
         bms, by = bound_ms((b * r * 2 + r * r + b) * 4, 2 * b * r * r)
         mp_rows.append(dict(batch=b, ms=ms, plain_ms=plain, bound_ms=bms,
-                            bound_by=by, max_abs_err=err))
-        log(f"minplus B={b} R={r}: kernel {ms:.4f} ms, plain {plain:.4f} ms,"
-            f" bound {bms:.6f} ms ({by}), max_abs_err {err}")
+                            bound_by=by, max_abs_err=err,
+                            kernel_device_us=kernel_us,
+                            plain_device_us=plain_us,
+                            launch_floor_us=floor_us))
+        log(f"minplus B={b} R={r}: kernel {ms:.4f} ms per call (events), "
+            f"{kernel_us:.2f} us on the device (profiler; launch floor "
+            f"{floor_us:.2f} us), plain {plain:.4f} ms ({plain_us:.2f} "
+            f"device us), bound {bms:.6f} ms ({by}), max_abs_err {err}")
 
     er_row = time_edge_relax(torch, dev, g1, lab1)
     bag_rows = time_embed_bag(torch, dev)

@@ -51,9 +51,15 @@ MAX_WAVES = 1 << 20  # safety valve; loops exit on fixpoint far earlier
 @dataclasses.dataclass(frozen=True)
 class RelaxPlan:
     """How to run sweeps on one graph snapshot: its prepared tiling, and
-    the frontier mode's row tiling when the engine has that mode on."""
+    the frontier mode's row tiling when the engine has that mode on.
+
+    `tiled` (bool [E2]) marks the slots both tilings hold: the live slots
+    of the snapshot it was prepared from. The engine serves the plan to a
+    snapshot only while every live slot lies in it.
+    """
     tiles: BlockedGraph
     frontier: FrontierTiles | None = None
+    tiled: torch.Tensor | None = None
 
 
 def relax_sweep(plan: RelaxPlan | None, g: Graph, keys: torch.Tensor,
@@ -178,6 +184,17 @@ class RelaxEngine:
         self.plan_cache_hits = 0      # keyed-cache hits (no retile needed)
 
     @staticmethod
+    def _fingerprint_terms(g: Graph) -> torch.Tensor:
+        """The fingerprint's two device terms, int64 [2]: the occupied-slot
+        count and the unmasked sum of the slot checksum."""
+        m32 = 0xFFFFFFFF
+        idx = torch.arange(g.src.shape[0], dtype=torch.int64, device=g.device)
+        slot_h = (((g.src.to(torch.int64) & m32) * 2654435761
+                   + (g.dst.to(torch.int64) & m32) * 40503) & m32) \
+            ^ ((idx * 2246822519) & m32)
+        return torch.stack([g.valid.sum(dtype=torch.int64), slot_h.sum()])
+
+    @staticmethod
     def snapshot_fingerprint(g: Graph) -> tuple:
         """Cheap identity of a snapshot's topology slots.
 
@@ -188,48 +205,71 @@ class RelaxEngine:
         embeds a slot permutation. The reference hashes in uint32 with
         wraparound; here the same value is taken in int64 and masked to
         32 bits (no product or sum below reaches 2^63).
+
+        It does not tell which slots are live: a deletion and a re-insert
+        into the same stale slot pair leave it unchanged. `prepare` checks
+        that separately, against the plan's `tiled` slots.
         """
-        m32 = 0xFFFFFFFF
-        occupied = int(g.valid.sum().item())
-        idx = torch.arange(g.src.shape[0], dtype=torch.int64, device=g.device)
-        slot_h = (((g.src.to(torch.int64) & m32) * 2654435761
-                   + (g.dst.to(torch.int64) & m32) * 40503) & m32) \
-            ^ ((idx * 2246822519) & m32)
-        chk = int(slot_h.sum().item()) & m32
-        return (g.n, g.src.shape[0], occupied, chk)
+        occupied, chk = RelaxEngine._fingerprint_terms(g).tolist()
+        return (g.n, g.src.shape[0], occupied, chk & 0xFFFFFFFF)
 
-    def _cache_is_stale(self, g: Graph) -> bool:
-        """True when g's topology slots don't match the cached tiling.
+    def _observe(self, g: Graph) -> tuple[tuple, dict]:
+        """g's fingerprint, and for each cached plan of g's slot count (by
+        key) whether a live slot of g lies outside its tiled slots, in one
+        host sync."""
+        same = [key for key, plan in self._plans.items()
+                if plan.tiled.shape == g.valid.shape]
+        terms = torch.cat([self._fingerprint_terms(g)] + [
+            (g.valid & ~self._plans[key].tiled).any().reshape(1)
+            for key in same])
+        occupied, chk, *missed = terms.tolist()
+        fp = (g.n, g.src.shape[0], occupied, chk & 0xFFFFFFFF)
+        return fp, dict(zip(same, map(bool, missed)))
 
-        Deletion-only churn keeps n, slot count and checksum and can only
-        shrink the occupied count; anything else mismatches.
+    def _cache_is_stale(self, fp: tuple, uncovered: bool) -> bool:
+        """True when a snapshot with fingerprint `fp` doesn't match the
+        cached tiling; `uncovered`: a live slot lies outside its tiled
+        slots.
+
+        Deletion-only churn keeps n, slot count and checksum, can only
+        shrink the occupied count and leaves every live slot tiled;
+        anything else mismatches.
         """
         n, cap, occupied, chk = self._fingerprint
-        n2, cap2, occupied2, chk2 = self.snapshot_fingerprint(g)
-        return (n2, cap2, chk2) != (n, cap, chk) or occupied2 > occupied
+        n2, cap2, occupied2, chk2 = fp
+        return (uncovered or (n2, cap2, chk2) != (n, cap, chk)
+                or occupied2 > occupied)
 
     def prepare(self, g: Graph, topology_changed: bool = True,
                 verify_cache: bool = True) -> RelaxPlan:
         """Plan sweeps for snapshot g, reusing the cached tiling when the
         caller vouches that no topology slot changed since the last prepare.
 
-        The vouch is verified against the fingerprint unless
-        `verify_cache=False`; a mismatch retiles (`stale_cache_retiles`).
-        Topology changes go through the fingerprint-keyed LRU: a snapshot
-        whose slots match a cached tiling reuses it (`plan_cache_hits`).
+        The vouch is verified against the fingerprint and the tiled slots
+        unless `verify_cache=False`; a mismatch retiles
+        (`stale_cache_retiles`). Topology changes go through the
+        fingerprint-keyed LRU: a snapshot whose slots match a cached tiling,
+        and whose live slots it all holds, reuses it (`plan_cache_hits`);
+        a key match that misses a live slot retiles and replaces the entry.
+        One host sync per call, none for an unverified vouch.
         """
         if g.device != self.device:
             raise ValueError(f"graph is on {g.device}, engine on "
                              f"{self.device}")
+        if self._plan is not None and not topology_changed \
+                and not verify_cache:
+            return self._plan
+        fp, uncovered = self._observe(g)
         if self._plan is not None and not topology_changed:
-            if not (verify_cache and self._cache_is_stale(g)):
+            current = next(k for k, p in self._plans.items()
+                           if p is self._plan)
+            if not self._cache_is_stale(fp, uncovered.get(current, True)):
                 return self._plan
             self.stale_cache_retiles += 1
-        fp = self.snapshot_fingerprint(g)
         key = fp + (("frontier", self.frontier_block, self.frontier_threshold)
                     if self.frontier else ())
         plan = self._plans.pop(key, None)
-        if plan is None:
+        if plan is None or uncovered.get(key, True):
             # Host sync: pull the slot arrays once per topology change and
             # tile only the occupied slots.
             src, dst = g.src.cpu().numpy(), g.dst.cpu().numpy()
@@ -240,7 +280,7 @@ class RelaxEngine:
                   if self.frontier else None)
             plan = RelaxPlan(er_ops.prepare_topology(
                 src, dst, keep, g.n, self.block_v, 1, self.block_e,
-                device=self.device), ft)
+                device=self.device), ft, g.valid.clone())
             self.retile_count += 1
         else:
             self.plan_cache_hits += 1

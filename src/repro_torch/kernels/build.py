@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_funcs: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 #: nvcc's output (ptxas registers / shared memory) of each fresh build.
 build_log: dict[str, str] = {}
 
@@ -86,12 +87,16 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
-    """C function `symbol` of `csrc/<name>.cu`, typed to return int.
+    """C function `symbol` of `csrc/<name>.cu`, typed to return int; typed
+    once and kept, since the kernels' wrappers call it on every launch.
 
     Pointers and the stream go as `ctypes.c_void_p`: untyped, ctypes would
     pass them as 32-bit ints and cut them.
     """
-    fn = getattr(load(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn = _funcs.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _funcs[name, symbol] = fn
     return fn

@@ -31,7 +31,9 @@ into the tiles at prepare time (`ops.prepare`) and no weight or hub:
 where sat maps a negative (wrapped) int32 sum to INF32 and clamps at
 INF32. It launches `csrc/edge_relax.cu` for CUDA tensors and runs
 `edge_relax_plain` for CPU tensors, replacing the Pallas `_relax_kernel`
-(and its `_reduce_rows` fold) of the same reference module.
+(and its `_reduce_rows` fold) of the same reference module. The kernel
+keeps one int32 per vertex of a block in shared memory, so it takes
+block_v <= EDGE_RELAX_MAX_BLOCK_V.
 
 The host tiling below (`block_edges_topology`, `aligned_vertex_count`,
 `shard_tiling`) is numpy, copied from the reference so that both packages
@@ -51,14 +53,14 @@ from repro_torch.core.labelling import sat_add
 from repro_torch.graphs.segment import masked_segment_min
 from repro_torch.kernels import build
 
-MAX_SHARED_BYTES = 48 * 1024  # kernel C's [block_v] tile is static-limit
-
-#: Dynamic shared memory one CTA of kernel A may opt in to on sm_90.
+#: Dynamic shared memory one CTA of kernel A or C may opt in to on sm_90.
 SWEEP_SHARED_BYTES = 232_448
 SWEEP_MAX_GROUP = 32  # planes per CTA: one warp's lanes
 SWEEP_CHUNK = 256     # slots per staged chunk (kChunk in relax_sweep.cu)
 #: The widest block_v whose one-plane tile and hub words still fit.
 SWEEP_MAX_BLOCK_V = (SWEEP_SHARED_BYTES // 4 - 8 * SWEEP_CHUNK) // 2
+#: The widest block_v of kernel C: its CTA holds one int32 per vertex.
+EDGE_RELAX_MAX_BLOCK_V = SWEEP_SHARED_BYTES // 4
 
 INF32 = 1 << 29  # the legacy sweep's infinity, fixed as in the reference
 
@@ -373,11 +375,15 @@ def edge_relax(keys: torch.Tensor, src_t: torch.Tensor,
         raise ValueError(f"no edge_relax kernel for device {keys.device}")
     if any(not a.is_contiguous() for a in (keys, *tiles, rowblk_t)):
         raise ValueError("edge_relax tensors must be contiguous")
-    if block_v * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"block_v={block_v} exceeds {MAX_SHARED_BYTES} "
-                         "bytes of shared memory")
+    if block_v > EDGE_RELAX_MAX_BLOCK_V:
+        raise ValueError(
+            f"block_v={block_v} needs {4 * block_v} bytes of shared memory "
+            f"per CTA; the limit is {SWEEP_SHARED_BYTES} "
+            f"(block_v <= {EDGE_RELAX_MAX_BLOCK_V})")
     s, nr, be = src_t.shape
-    out = torch.full((n,), INF32, dtype=torch.int32, device=keys.device)
+    # The kernel writes every vertex: one-row blocks store their tile,
+    # chunked blocks are filled with INF32 first and then min-folded.
+    out = torch.empty((n,), dtype=torch.int32, device=keys.device)
     err = build.function("edge_relax", "edge_relax_launch",
                          _EDGE_RELAX_ARGTYPES)(
         keys.data_ptr(), src_t.data_ptr(), dstloc_t.data_ptr(),

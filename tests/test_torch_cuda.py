@@ -14,6 +14,8 @@ the integer kernels, and for the float embedding bag to rtol = atol =
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,7 @@ from repro_torch.kernels.embed_bag import kernel as ek
 from repro_torch.kernels.embed_bag import ops as eops
 from repro_torch.kernels.minplus import kernel as mk
 
+import _kernel_cases as kcases
 import _sweep_cases as cases
 
 
@@ -95,20 +98,16 @@ def test_relax_sweep_kernel_block_v_limit(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,p,r", [(1, 32, 32), (32, 32, 32),
-                                   (1024, 32, 32), (64, 8, 32)])
-def test_minplus_kernel_matches_plain(dev, b, p, r):
-    rng = np.random.default_rng(b + p)
-
-    def draw(shape):
-        x = rng.integers(0, 64, shape).astype(np.int32)
-        x[rng.random(shape) < 0.2] = 1 << 29
-        return torch.from_numpy(x).to(dev)
-    s, h, t = draw((b, p)), draw((p, r)), draw((b, r))
+@pytest.mark.parametrize("name", kcases.minplus_names())
+def test_minplus_kernel_matches_plain(dev, name):
+    """Each min-plus case of `tests/_kernel_cases.py`: B in {0, 1, 31,
+    32, 33, 1024} at R = 32, rectangular H, H of 64 KB and 1 MB, all-INF
+    rows. B = 0 launches nothing."""
+    s, h, t = (torch.from_numpy(x).to(dev) for x in kcases.minplus_case(name))
     before = mk.launches
     got = mk.minplus(s, h, t)
     torch.cuda.synchronize()
-    assert mk.launches == before + 1
+    assert mk.launches == before + (s.shape[0] > 0)
     assert torch.equal(got, mk.minplus_plain(s, h, t))
 
 
@@ -135,9 +134,7 @@ def test_api_on_card_equals_cpu(dev):
         assert torch.equal(a, b)
 
 
-def _edge_relax_equal(bg, keys, step):
-    args = (keys, bg.src_t, bg.dstloc_t, bg.valid_t, bg.rowblk_t, step,
-            bg.n, bg.block_v, bg.nb)
+def _edge_relax_equal(args):
     before = rk.launches_edge_relax
     got = rk.edge_relax(*args)
     torch.cuda.synchronize()
@@ -147,29 +144,30 @@ def _edge_relax_equal(bg, keys, step):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("step", [1, 2, 4])
-@pytest.mark.parametrize("block_e,shards", [(None, 1), (7, 2), (None, 2)])
-def test_edge_relax_kernel_matches_plain(dev, step, block_e, shards):
-    rng = np.random.default_rng(step * 10 + shards)
-    n, m = 61, 240
-    src = rng.integers(0, n, m).astype(np.int32)
-    dst = rng.integers(0, n, m).astype(np.int32)
-    valid = rng.random(m) < 0.8
-    bg = rops.prepare(src, dst, valid, n, 16, shards, block_e, device=dev)
-    keys = torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32))
-    got = _edge_relax_equal(bg, keys.to(dev), step)
-    want = rref.edge_relax(keys, torch.from_numpy(src),
-                           torch.from_numpy(dst), torch.from_numpy(valid),
-                           step, n)
-    assert torch.equal(got.cpu(), want)
-    # Keys near INF32 and near 2^31 - 1 saturate to INF32.
-    near = torch.from_numpy(np.where(
-        rng.random(n) < 0.5, 2**31 - 1 - rng.integers(0, 4, n),
-        (1 << 29) - rng.integers(0, 4, n)).astype(np.int32))
-    _edge_relax_equal(bg, near.to(dev), step)
-    none = rops.prepare(src, dst, np.zeros(m, bool), n, 16, shards, block_e,
-                        device=dev)
-    assert (_edge_relax_equal(none, keys.to(dev), step) == 1 << 29).all()
+@pytest.mark.parametrize("name", kcases.edge_relax_names())
+def test_edge_relax_kernel_matches_plain(dev, name):
+    """Each edge-relax case of `tests/_kernel_cases.py` at steps 1, 2 and
+    4: BE % 4 in {0, 1, 3}, chunked and sharded tilings with a short last
+    shard, block_v up to the kernel's limit, near-INF keys, all invalid,
+    zero slots; held to the COO oracle too."""
+    for c in kcases.edge_relax_case(name):
+        for step in kcases.STEPS:
+            got = _edge_relax_equal(kcases.edge_relax_args(c, step, dev))
+            want = rref.edge_relax(
+                *(torch.from_numpy(x).to(dev)
+                  for x in (c.keys, c.src, c.dst, c.valid)), step, c.n)
+            assert torch.equal(got, want), c.label
+
+
+@pytest.mark.cuda
+def test_edge_relax_kernel_block_v_limit(dev):
+    """One block_v past the shared-memory limit raises the wrapper's
+    ValueError, the limit named."""
+    limit = rk.EDGE_RELAX_MAX_BLOCK_V
+    c = kcases.edge_relax_case("near-inf")[0]
+    c = dataclasses.replace(c, block_v=limit + 1)
+    with pytest.raises(ValueError, match=f"block_v <= {limit}"):
+        rk.edge_relax(*kcases.edge_relax_args(c, 1, dev))
 
 
 def _embed_bag_close(table, idx, w):

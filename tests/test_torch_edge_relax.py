@@ -7,7 +7,9 @@ COO oracle `ref.edge_relax` are held to the reference's Pallas
 `edge_relax_pallas` (interpret mode) and its `ref.edge_relax`, over the
 reference's shape grid, `block_e` None and 7, shards 1 and 2, an
 all-invalid mask, a zero-slot graph and keys near 2^31 - 1. The tiles of
-`ops.prepare`, `valid_t` included, equal the reference's.
+`ops.prepare`, `valid_t` included, equal the reference's. The edge cases
+of `tests/_kernel_cases.py`, which the card runs against the kernel, are
+held to the reference's COO oracle.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from repro.kernels.edge_relax import ref as jref
 from repro_torch.kernels.edge_relax import kernel as tker
 from repro_torch.kernels.edge_relax import ops as tops
 from repro_torch.kernels.edge_relax import ref as tref
+
+import _kernel_cases as kcases
 
 INF32 = 1 << 29
 FIELDS = ("src_t", "dstloc_t", "valid_t", "perm_t", "slot_t", "rowblk_t")
@@ -155,3 +159,15 @@ def test_edge_relax_rejects_bad_arguments():
         tker.edge_relax(torch.from_numpy(keys), bg.src_t, bg.dstloc_t,
                         bg.valid_t.to(torch.int64), bg.rowblk_t, 1, 16, 8,
                         bg.nb)
+
+
+@pytest.mark.parametrize("name", kcases.edge_relax_names())
+def test_edge_relax_plain_on_kernel_cases(name):
+    for c in kcases.edge_relax_case(name):
+        for step in kcases.STEPS:
+            args = kcases.edge_relax_args(c, step, "cpu")
+            got = tker.edge_relax(*args).numpy()
+            want = np.asarray(jref.edge_relax(
+                jnp.asarray(c.keys), jnp.asarray(c.src), jnp.asarray(c.dst),
+                jnp.asarray(c.valid), step, c.n))
+            np.testing.assert_array_equal(got, want, err_msg=c.label)
