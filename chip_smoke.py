@@ -39,7 +39,9 @@
    tile slots, only `slot_t` of the padding ones, w and mask of the live
    edges — beside the bound of every padded tile slot, and the device
    time of each of its kernels — key transpose, mask pack, `inf` fill,
-   sweep — from one `torch.profiler` pass); one query microbatch under
+   sweep — from a `torch.profiler` pass over three calls, run again when
+   it recorded fewer sweep launches than calls, and failing the phase
+   after three such passes); one query microbatch under
    `torch.profiler` (device-busy ms, against the same call's median host
    ms timed without the profiler for the idle share), and its plan-cache
    hit (`RelaxEngine.prepare` of the queried snapshot: device ms, host
@@ -54,9 +56,28 @@
    `torch.nn.functional.embedding_bag` as the library yardstick. Each of
    those two entry points is its kernel's path: its count is set to 0
    just before the call and read just after.
-6. Prints a `summary:` line with every number above as JSON, the
-   `{"kernels": [...]}` line, the card line, and last
-   `{"ok": true, "device": {...}}`.
+6. The serving path at full width (`repro_torch.launch.serve`, the
+   production config: BA(2^20, 4), 32 landmarks, batches of 1024, query
+   microbatches of 32, 256 queries a tick at 2000 per second). First
+   BHLˢ on the phase-3 batch and UHL⁺ on the trickle batch through an
+   engine, each held to the COO path; the phase-3 tick as a pipelined
+   update stepped by hand (full sweep, fused, frontier), each held to
+   phase 3's update, with the host syncs of every step. Then the serve
+   loop: 3 ticks in pipeline mode with checkpoints (run A; kernel launch
+   counts set to 0 just before and read just after, both kernels must
+   run), in sync mode (every committed version equal to run A's), fused
+   (final snapshot equal), a restore of run A's last checkpoint and a run
+   resumed after 2 ticks (equal), and 2 ticks of the `growth` scenario
+   from 64 free slot pairs (must grow). Served answers, up to 32 per
+   version, equal a recomputation on the COO path at their version and
+   scipy BFS; the final dist of run A and of the growth run equal scipy
+   BFS from every landmark. Per tick: update seconds, affected count,
+   growth and checkpoint seconds; latency from arrival to answer (p50,
+   p95, p99), mean staleness, checkpoint bytes and restore seconds, peak
+   device memory and the phase's wall time.
+7. Prints a `summary:` line with every number above as JSON, the
+   `{"kernels": [...]}` line (kernel A's and B's launches are run A's),
+   the card line, and last `{"ok": true, "device": {...}}`.
 
 Exits nonzero, printing no result, without a CUDA device or if any phase
 fails. Imports nothing of JAX or of the JAX package `repro`.
@@ -186,6 +207,24 @@ def sweep_parts(per: dict) -> dict:
     return out
 
 
+def sweep_split(torch, fn, reps: int = 3, tries: int = 3) -> tuple[dict,
+                                                                   list]:
+    """Kernel A's device ms per call by its kernels, from one profiler pass
+    over `reps` warm calls. A pass that did not record every call's sweep
+    kernel runs again, up to `tries` passes; then the phase fails. Returns
+    (ms per part, sweep launches each pass recorded)."""
+    seen = []
+    for _ in range(tries):
+        per = device_kernels(torch, lambda: [fn() for _ in range(reps)])[0]
+        seen.append(sum(v[1] for k, v in per.items()
+                        if "relax_sweep_kernel" in k))
+        parts = {k: v / reps for k, v in sweep_parts(per).items()}
+        if seen[-1] == reps and sum(parts.values()) > 0:
+            return parts, seen
+    raise AssertionError(f"kernel A's split: the profiler recorded {seen} "
+                         f"of {reps} sweep launches in {tries} passes")
+
+
 def profiled_us(torch, fn, match: str, reps: int = 20) -> float:
     """Mean device microseconds per call of `fn()` (already warm) over
     `reps` calls under `torch.profiler`, counting the device kernels whose
@@ -194,10 +233,11 @@ def profiled_us(torch, fn, match: str, reps: int = 20) -> float:
     return sum(v[0] for k, v in per.items() if match in k) * 1e3 / reps
 
 
-def host_syncs(torch, fn) -> int:
+def host_syncs(torch, fn, sources: list | None = None) -> int:
     """The synchronising CUDA calls `fn()` makes, counted by the warnings
     of `torch.cuda.set_sync_debug_mode` (not its one-time notice that the
-    mode is a prototype, which also speaks of synchronising)."""
+    mode is a prototype, which also speaks of synchronising). `sources`,
+    if given, gets the file:line of each."""
     import warnings
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -206,8 +246,11 @@ def host_syncs(torch, fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("called a synchronizing CUDA operation" in str(w.message)
-               for w in caught)
+    hits = [w for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+    if sources is not None:
+        sources += [f"{Path(w.filename).name}:{w.lineno}" for w in hits]
+    return len(hits)
 
 
 def profile_prepare_hit(torch, engine, g) -> dict:
@@ -416,10 +459,26 @@ def csr_of(g, np):
 
 
 def bfs_dist(csr, sources, np, inf_d):
-    from scipy.sparse.csgraph import shortest_path
-    d = shortest_path(csr, method="D", unweighted=True, directed=True,
-                      indices=np.asarray(sources))
-    return np.where(np.isinf(d), inf_d, d).astype(np.int64)
+    """Hop distances [len(sources), n] over the arcs of `csr` (row to
+    column), `inf_d` where unreached: one BFS of all sources at once, a
+    level per scipy sparse product (the same distances as
+    `scipy.sparse.csgraph.shortest_path(unweighted=True)`, which runs one
+    Dijkstra per source and takes several times longer at 2^20)."""
+    sources = np.asarray(sources, np.int64)
+    cols = np.arange(len(sources))
+    back = csr.T.tocsr().astype(np.float32)   # back[v, u]: an arc u -> v
+    dist = np.full((csr.shape[0], len(sources)), inf_d, np.int64)
+    dist[sources, cols] = 0
+    front = np.zeros(dist.shape, np.float32)
+    front[sources, cols] = 1
+    level = 0
+    while True:
+        level += 1
+        new = (back @ front > 0) & (dist == inf_d)
+        if not new.any():
+            return dist.T.copy()
+        dist[new] = level
+        front = new.astype(np.float32)
 
 
 # --- phase 3b: the frontier update ---------------------------------------------
@@ -447,8 +506,7 @@ def assert_same_update(torch, got, want, what: str) -> None:
                        ("highway", lab.highway, lab2.highway),
                        ("aff", aff, aff2)):
         if not torch.equal(a, b):
-            raise AssertionError(f"{what}: frontier update != full sweep "
-                                 f"on {name}")
+            raise AssertionError(f"{what}: {name} differs")
 
 
 def wave_kinds(waves: dict) -> dict:
@@ -532,7 +590,7 @@ def run_frontier_update(torch, dev, g0, lab0, batch, full, trickle) -> dict:
             f"launches {launches}")
     if any(k["full"] for k in out["trickle"]["masked"]["waves"].values()):
         raise AssertionError("threshold 1.0 ran a full wave")
-    return out
+    return out, fr
 
 
 # --- phase 5: kernels C and D on their own paths --------------------------------
@@ -650,6 +708,310 @@ def time_embed_bag(torch, dev) -> list:
     return rows
 
 
+# --- phase 6: the serving loop at full width ----------------------------------
+
+SERVE_BATCHES = 3
+SERVE_BATCH = 1024
+SERVE_QUERIES = 256
+SERVE_QPS = 2000.0
+SERVE_CHECK = 32   # served answers per version held to the COO path and BFS
+SERVE_DIR = ROOT / "build" / "chip_smoke_serve"   # checkpoints, removed after
+
+
+def memoise_ba() -> None:
+    """Generate each Barabási–Albert graph once per run of this script: the
+    serve loop regenerates its graph at every start, and at 2^20 that
+    pure-Python generator takes longer than the rest of a loop's start."""
+    from repro_torch.graphs import generators as gen
+    made: dict = {}
+    orig = gen.barabasi_albert
+
+    def barabasi_albert(n, m, seed=0):
+        if (n, m, seed) not in made:
+            made[n, m, seed] = orig(n, m, seed)
+        return made[n, m, seed].copy()
+    gen.barabasi_albert = barabasi_albert
+
+
+def same_snapshot(torch, got, want, what: str) -> None:
+    """Two snapshots bit for bit: version, n, graph slots, labelling."""
+    if (got.version, got.graph.n) != (want.version, want.graph.n):
+        raise AssertionError(f"{what}: version/n {got.version}/{got.graph.n}"
+                             f" != {want.version}/{want.graph.n}")
+    for part in ("graph", "labelling"):
+        a, b = getattr(got, part), getattr(want, part)
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if torch.is_tensor(x) and not torch.equal(x, y):
+                raise AssertionError(f"{what}: {part}.{f.name} differs")
+
+
+def step_syncs(torch, gen, sources: dict):
+    """Drive a pipelined update one step at a time, counting each step's
+    host syncs: ([(phase tag, syncs)], syncs of the last step, result);
+    `sources` gets the file:line of each sync, by phase tag."""
+    steps = []
+    while True:
+        box = {}
+
+        def step():
+            try:
+                box["tag"] = next(gen)
+            except StopIteration as stop:
+                box["result"] = stop.value
+        where: list = []
+        n = host_syncs(torch, step, where)
+        tag = box.get("tag", "finish")
+        sources[tag] = sorted(set(sources.get(tag, [])) | set(where))
+        if "result" in box:
+            return steps, n, box["result"]
+        steps.append((tag, n))
+
+
+def chunk_profile(torch, snap, batch, plan, g_new, want, what: str,
+                  fused: bool = False) -> dict:
+    """One pipelined update (chunk_sweeps 1) stepped by hand: chunks per
+    phase and the host syncs of each step, held to `want` (g, lab, aff)."""
+    from repro_torch.core import engine as teng
+    from repro_torch.core import snapshot as tsnap
+    teng.WAVES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sources: dict = {}
+    steps, last, (nxt, aff) = step_syncs(torch, tsnap.pipelined_update(
+        snap, batch, plan=plan, g_new=g_new, fused=fused), sources)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g, lab, aff_want = want
+    same_snapshot(torch, nxt, dataclasses.replace(nxt, graph=g,
+                                                  labelling=lab), what)
+    if not torch.equal(aff, aff_want):
+        raise AssertionError(f"{what}: aff differs")
+    by_tag: dict = {}
+    for tag, n in steps:
+        by_tag.setdefault(tag, []).append(n)
+    out = dict(wall_s=wall, chunks={k: len(v) for k, v in by_tag.items()},
+               syncs={k: v for k, v in by_tag.items()},
+               last_step_syncs=last, sync_sources=sources,
+               waves=dict(teng.WAVES))
+    log(f"phase 6 chunks ({what}): {wall:.3f} s, chunks per phase "
+        f"{out['chunks']}; host syncs per step {out['syncs']}, last step "
+        f"{last}, at {sources}; == the monolithic update (slots, "
+        "labelling, aff)")
+    return out
+
+
+def served_answers(reports, version: int, k: int):
+    """The first `k` (s, t, answer) served at `version` across `reports`."""
+    rows = []
+    for rep in reports:
+        for m in rep.microbatches:
+            if m.version == version:
+                rows += list(zip(m.qs.tolist(), m.qt.tolist(),
+                                 m.answers.tolist()))
+    return rows[:k]
+
+
+def check_served(torch, np, dev, snap, rows, what: str) -> None:
+    """Served answers against the COO path at their version and BFS."""
+    from repro_torch.core import query as tq
+    from repro_torch.graphs.coo import INF_D
+    s = np.asarray([r[0] for r in rows], np.int32)
+    t = np.asarray([r[1] for r in rows], np.int32)
+    got = np.asarray([r[2] for r in rows])
+    coo = tq.batched_query(snap.graph, snap.labelling,
+                           torch.from_numpy(s).to(dev),
+                           torch.from_numpy(t).to(dev), use_kernel=False,
+                           plan=None).cpu().numpy()
+    bfs = bfs_dist(csr_of(snap.graph, np), s, np, INF_D)[np.arange(len(s)),
+                                                           t]
+    if not (np.array_equal(got, coo) and np.array_equal(got, bfs)):
+        raise AssertionError(f"{what}: served answers != COO path / BFS")
+
+
+def check_dist_bfs(np, snap, what: str) -> None:
+    from repro_torch.graphs.coo import INF_D
+    lab = snap.labelling
+    want = bfs_dist(csr_of(snap.graph, np), lab.landmarks.cpu().numpy(), np,
+                    INF_D)
+    if not np.array_equal(lab.dist.cpu().numpy(), want):
+        raise AssertionError(f"{what}: dist != scipy BFS")
+
+
+def serve_row(rep, wall: float) -> dict:
+    pct = rep.latency_percentiles()
+    ticks = [dict(tick=t.tick, update_s=t.update_s, affected=t.affected,
+                  grew=t.grew, capacity=t.capacity, ckpt_s=t.ckpt_s)
+             for t in rep.ticks]
+    return dict(wall_s=wall, ticks=ticks, latency_s=pct,
+                mean_staleness=rep.mean_staleness(),
+                microbatches=len(rep.microbatches),
+                growth=[dataclasses.asdict(e) for e in rep.growth])
+
+
+def run_serve(torch, np, dev, g0, lab0, batch, full, trickle, fr) -> dict:
+    """Phase 6: the update variants and the pipelined update's chunks on
+    the phase-3 tick, then the single-process serve loop at full width in
+    pipeline, sync, fused, resume and growth runs, held to each other and
+    to scipy BFS."""
+    import shutil
+    from repro_torch import api
+    from repro_torch.core import batch as tbat
+    from repro_torch.core import engine as teng
+    from repro_torch.core import snapshot as tsnap
+    from repro_torch.data.scenarios import get_scenario
+    from repro_torch.launch.serve import ServeConfig, ServeLoop
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    g1, lab1, aff1 = full
+
+    # BHLˢ on the phase-3 batch and UHL⁺ on the trickle batch, each through
+    # an engine on the card, held to the COO path (engine=None).
+    for name, fn, b in (("split", tbat.batchhl_update_split, batch),
+                        ("uhl", tbat.uhl_update, trickle)):
+        eng = teng.RelaxEngine(block_v=api.BLOCK_V, block_e=api.BLOCK_E,
+                               device=dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(g0, b, lab0, engine=eng)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()["relax_sweep"]
+        t0 = time.perf_counter()
+        want = fn(g0, b, lab0, engine=None)
+        assert_same_update(torch, got, want, f"{name} (engine vs COO)")
+        coo_s = time.perf_counter() - t0
+        out[name] = dict(rows=int(b.valid.sum()), seconds=secs,
+                         retiles=eng.retile_count, relax_launches=launches,
+                         coo_s=coo_s)
+        log(f"phase 6 {name}: {out[name]['rows']} rows, {secs:.3f} s, "
+            f"{eng.retile_count} retiles, {launches} relax_sweep launches; "
+            f"== COO path (slots, labelling, aff; {coo_s:.1f} s)")
+        del got, want, eng
+
+    # The pipelined update's chunks on the phase-3 tick: full sweep (fused
+    # and not) and the frontier mode.
+    plan1 = api.default_engine(dev).prepare(g1)
+    snap0 = tsnap.Snapshot(0, g0, lab0, None)
+    out["per_item_syncs"] = host_syncs(torch,
+                                       lambda: g1.valid[:1].sum().item())
+    out["chunks"] = {
+        "full": chunk_profile(torch, snap0, batch, plan1, g1, full, "full"),
+        "fused": chunk_profile(torch, snap0, batch, plan1, g1, full,
+                               "fused", fused=True),
+        "frontier": chunk_profile(torch, snap0, batch, fr.prepare(g1), g1,
+                                  full, "frontier")}
+
+    # The serve loop. Every run gets run A's capacity (the loop's default
+    # sizes it from the run's own tick count), so that the runs cut after 2
+    # ticks hold the same slots.
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    edges = int(g0.valid.sum()) // 2
+    capacity = edges + 64 + get_scenario("mixed").max_inserts(SERVE_BATCHES,
+                                                              SERVE_BATCH)
+    base = dict(n=N, deg=BA_M, landmarks=LANDMARKS, batches=SERVE_BATCHES,
+                capacity=capacity,
+                batch_size=SERVE_BATCH, scenario="mixed",
+                queries=SERVE_QUERIES, qps=SERVE_QPS, microbatch=MICROBATCH,
+                chunk_sweeps=1, block_v=api.BLOCK_V, block_e=api.BLOCK_E,
+                quiet=True)
+
+    def serve(what, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = ServeLoop(ServeConfig(**{**base, **kw}), device=dev).run()
+        torch.cuda.synchronize()
+        row = serve_row(rep, time.perf_counter() - t0)
+        out[what] = row
+        pct = row["latency_s"]
+        log(f"phase 6 serve {what}: {row['wall_s']:.1f} s; ticks "
+            + "; ".join(f"{t['tick']}: update {t['update_s']:.3f} s, "
+                        f"{t['affected']} affected, grew {t['grew']}, "
+                        f"ckpt {t['ckpt_s']:.3f} s" for t in row["ticks"])
+            + f" | latency p50 {pct['p50'] * 1e3:.1f} ms p95 "
+            f"{pct['p95'] * 1e3:.1f} ms p99 {pct['p99'] * 1e3:.1f} ms, "
+            f"mean staleness {row['mean_staleness']:.3f}, "
+            f"{row['microbatches']} microbatches")
+        return rep
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    teng.WAVES.clear()
+    rep_a = serve("pipeline", pipeline=True, keep_history=True,
+                  ckpt_dir=str(SERVE_DIR / "a"))
+    out["pipeline"]["launches"] = launches = read_launches()
+    out["pipeline"]["waves"] = dict(teng.WAVES)
+    if launches["relax_sweep"] <= 0 or launches["minplus"] <= 0:
+        raise AssertionError(f"the serve loop skipped a kernel: {launches}")
+    rep_b = serve("sync", keep_history=True)
+    same_snapshot(torch, rep_b.final, rep_a.final, "sync vs pipeline")
+    for v in rep_a.history:
+        same_snapshot(torch, rep_b.history[v], rep_a.history[v],
+                      f"sync vs pipeline, version {v}")
+    t0 = time.perf_counter()
+    checked = {}
+    for v, snap in sorted(rep_a.history.items()):
+        rows = served_answers((rep_a, rep_b), v, SERVE_CHECK)
+        if rows:
+            check_served(torch, np, dev, snap, rows, f"version {v}")
+        checked[v] = len(rows)
+    check_dist_bfs(np, rep_a.final, "serve final")
+    out["checked_answers"] = checked
+    out["check_s"] = time.perf_counter() - t0
+    log(f"phase 6: sync == pipeline at every version; served answers == "
+        f"COO path == scipy BFS per version {checked}; final dist == scipy "
+        f"BFS from all {LANDMARKS} landmarks ({out['check_s']:.1f} s of "
+        f"checks); launches {launches}")
+    del rep_b
+    rep = serve("fused", pipeline=True, fused=True)
+    same_snapshot(torch, rep.final, rep_a.final, "fused vs pipeline")
+    del rep
+
+    # Checkpoints: restore run A's last step, then resume a 2-tick run.
+    step = SERVE_DIR / "a" / f"step_{SERVE_BATCHES}"
+    nbytes = sum(f.stat().st_size for f in step.iterdir())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = tsnap.restore_snapshot(str(SERVE_DIR / "a"), device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_snapshot(torch, dataclasses.replace(back, plan=None),
+                  dataclasses.replace(rep_a.final, plan=None), "restore")
+    out["checkpoint"] = dict(bytes=nbytes, restore_s=restore_s,
+                             save_s=[t["ckpt_s"] for t in
+                                     out["pipeline"]["ticks"]])
+    log(f"phase 6 checkpoint: step of {nbytes} bytes, saves "
+        f"{out['checkpoint']['save_s']} s, restore {restore_s:.3f} s "
+        "== run A's final snapshot")
+    del back
+    serve("resume_first", pipeline=True, batches=2,
+          ckpt_dir=str(SERVE_DIR / "r"))
+    rep = serve("resume", pipeline=True, ckpt_dir=str(SERVE_DIR / "r"),
+                resume=True)
+    same_snapshot(torch, rep.final, rep_a.final, "resumed vs pipeline")
+    del rep, rep_a
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+
+    # Growth: pure inserts from a capacity 64 pairs above the edge count.
+    rep = serve("growth", pipeline=True, scenario="growth", batches=2,
+                capacity=edges + 64, grow=True)
+    if not rep.growth:
+        raise AssertionError("the growth run did not grow")
+    t0 = time.perf_counter()
+    check_dist_bfs(np, rep.final, "growth final")
+    log(f"phase 6 growth: {len(rep.growth)} growths, capacity "
+        f"{rep.growth[0].old_capacity} -> {rep.final.graph.capacity}; "
+        f"final dist == scipy BFS ({time.perf_counter() - t0:.1f} s)")
+    del rep
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 6: {out['wall_s']:.1f} s, peak device memory "
+        f"{out['peak_gb']:.2f} GB")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -672,6 +1034,7 @@ def main() -> int:
     from repro_torch.kernels.minplus import kernel as mk
 
     dev = torch.device(DEVICE)
+    memoise_ba()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -796,8 +1159,8 @@ def main() -> int:
     trickle = coo.make_batch(gen.random_batch_updates(
         edges, N, n_ins=TRICKLE, n_del=TRICKLE, seed=3), pad_to=2 * TRICKLE,
         device=dev)
-    frontier = run_frontier_update(torch, dev, g0, lab0, batch,
-                                   (g1, lab1, aff1), trickle)
+    frontier, fr_engine = run_frontier_update(torch, dev, g0, lab0, batch,
+                                              (g1, lab1, aff1), trickle)
 
     # --- 5. timings at the main path's shapes -----------------------------------
     eng = teng.RelaxEngine(block_v=api.BLOCK_V, block_e=api.BLOCK_E,
@@ -857,8 +1220,7 @@ def main() -> int:
             raise AssertionError(f"relax_sweep != plain at full size: {name}")
         ms, plain = paired_ms(lambda: rk.relax_sweep(*args),
                               lambda: rk.relax_sweep_plain(*args), 10, 3)
-        parts = sweep_parts(device_kernels(torch, lambda: rk.relax_sweep(
-            *args))[0])
+        parts, passes = sweep_split(torch, lambda: rk.relax_sweep(*args))
         p = keys.shape[0]
         # The mask at each live tile slot's edge; the (plane, slot) pairs
         # it lets through, and the slots some plane lets through.
@@ -885,12 +1247,13 @@ def main() -> int:
                                padded_bytes=padded_bytes,
                                max_abs_err=err, planes=p,
                                live_plane_edges=plane_edges,
-                               device_ms=parts))
+                               device_ms=parts, profiler_passes=passes))
         log(f"relax_sweep {name}: [{p}, {N}] keys, {bg.slots} slots "
             f"({live_slots} live): kernel {ms:.3f} ms, plain {plain:.3f} ms,"
             f" bound {bms:.4f} ms ({by}, {nbytes} needed bytes), padded-tile "
             f"bound {padded_ms:.4f} ms ({padded_bytes} bytes), max_abs_err "
-            f"{err}; device ms of one call {parts}")
+            f"{err}; device ms of one call {parts} (sweeps recorded per "
+            f"profiler pass {passes})")
     del bou_mask, int_mask, perm_live
 
     # One query microbatch under the profiler: how busy the card is, and
@@ -938,13 +1301,17 @@ def main() -> int:
     er_row = time_edge_relax(torch, dev, g1, lab1)
     bag_rows = time_embed_bag(torch, dev)
 
-    # --- 6. the kernels line and the summary --------------------------------------
+    # --- 6. the serving loop at full width ------------------------------------
+    serve = run_serve(torch, np, dev, g0, lab0, batch, (g1, lab1, aff1),
+                      trickle, fr_engine)
+
+    # --- 7. the kernels line and the summary --------------------------------------
     key2_row = sweep_rows[2]
     kernels = [
         dict(name="relax_sweep", route="cuda",
              source="src/repro_torch/csrc/relax_sweep.cu",
              replaces="src/repro/kernels/edge_relax/kernel.py:68",
-             launches=launches["relax_sweep"],
+             launches=serve["pipeline"]["launches"]["relax_sweep"],
              max_abs_err=max(r["max_abs_err"] for r in sweep_rows),
              ms=key2_row["ms"], plain_ms=key2_row["plain_ms"],
              bound_ms=key2_row["bound_ms"], bound_by=key2_row["bound_by"],
@@ -952,7 +1319,7 @@ def main() -> int:
         dict(name="minplus", route="cuda",
              source="src/repro_torch/csrc/minplus.cu",
              replaces="src/repro/kernels/minplus/kernel.py:37",
-             launches=launches["minplus"],
+             launches=serve["pipeline"]["launches"]["minplus"],
              max_abs_err=max(r["max_abs_err"] for r in mp_rows),
              ms=mp_rows[1]["ms"], plain_ms=mp_rows[1]["plain_ms"],
              bound_ms=mp_rows[1]["bound_ms"], bound_by=mp_rows[1]["bound_by"],
@@ -986,6 +1353,7 @@ def main() -> int:
                    relax_sweep=sweep_rows, query_profile=q_prof,
                    minplus=mp_rows,
                    frontier=frontier, edge_relax=er_row, embed_bag=bag_rows,
+                   serve=serve,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")
     log("summary: " + json.dumps(summary))

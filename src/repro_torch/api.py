@@ -1,9 +1,10 @@
-"""The public face of the port: build / update / query.
+"""The public face of the port: build / update / query / serve.
 
     >>> from repro_torch import api
     >>> g, lab = api.build(n, edges, num_landmarks=16)
     >>> g, lab, affected = api.update(g, lab, updates)
     >>> dist = api.query(g, lab, sources, targets)
+    >>> report = api.serve(n=5000, batches=3, pipeline=True)
 
 The same verbs as `repro.api`, on one GPU. `build` runs on the GPU unless
 it is given `device="cpu"`, and raises when there is no GPU and no device
@@ -21,6 +22,8 @@ the default is the COO reference (`plan=None`), as in `repro.api`.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -33,9 +36,10 @@ from repro_torch.core.query import batched_query
 from repro_torch.device import resolve_device
 from repro_torch.graphs.coo import (BatchUpdate, Graph, apply_batch,
                                     from_edges, make_batch)
+from repro_torch.launch.config import SPEC_GROUPS, ServeSpec
 
-__all__ = ["build", "update", "query", "Graph", "BatchUpdate",
-           "HighwayLabelling", "RelaxEngine"]
+__all__ = ["build", "update", "query", "serve", "Graph", "BatchUpdate",
+           "HighwayLabelling", "RelaxEngine", "ServeSpec"]
 
 BLOCK_V = 512
 BLOCK_E = 4096
@@ -114,3 +118,32 @@ def query(g: Graph, lab: HighwayLabelling, s, t, *, max_steps: int = 64,
                         else t, device=g.device)
     return batched_query(g, lab, s, t, max_steps=max_steps,
                          plan=_plan(g, engine))
+
+
+def serve(spec: ServeSpec | None = None, *, publish_dir: str | None = None,
+          device: str | torch.device | None = None, **overrides):
+    """Run the single-process serving loop for a `ServeSpec`; returns its
+    `ServeReport`.
+
+    `overrides` are `ServeSpec` group fields by name (`n=5000`,
+    `pipeline=True`, ...) applied over `spec` (or over the defaults).
+    `device=None` is the GPU. The replica tier behind `publish_dir` is not
+    ported yet.
+    """
+    from repro_torch.launch.serve import ServeLoop
+
+    if publish_dir is not None:
+        raise NotImplementedError(
+            "serve(publish_dir=...): the replica tier is not ported yet "
+            "(ROADMAP § 1, item 8)")
+    spec = spec or ServeSpec()
+    groups = {}
+    for gname, cls in SPEC_GROUPS:
+        fields = {f.name for f in dataclasses.fields(cls)}
+        got = {k: overrides.pop(k) for k in list(overrides) if k in fields}
+        if got:
+            groups[gname] = dataclasses.replace(getattr(spec, gname), **got)
+    if overrides:
+        raise TypeError(f"unknown serve() overrides: {sorted(overrides)}")
+    spec = dataclasses.replace(spec, **groups)
+    return ServeLoop(spec.to_serve_config(), device=device).run()

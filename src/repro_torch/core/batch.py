@@ -12,13 +12,19 @@ the same planes again.
 Variants (paper §7 naming):
   BHL   = basic batch search (Algo 2) + batch repair (Algo 4)
   BHL+  = improved batch search (Algo 3) + batch repair (Algo 4)
+  BHLˢ  = BHL⁺ on the insertions, then on the deletions and re-weights
+          (`batchhl_update_split`)
+  UHL⁺  = BHL⁺ one update at a time (`uhl_update`)
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from repro_torch.core.engine import (MAX_WAVES, WAVES, RelaxPlan, fixpoint,
-                                     gather_rows, relax_rows, relax_sweep)
+from repro_torch.core.engine import (MAX_WAVES, WAVES, RelaxEngine,
+                                     RelaxPlan, fixpoint, gather_rows,
+                                     relax_rows, relax_sweep)
 from repro_torch.core.labelling import (
     HighwayLabelling, INF_KEY2, INF_KEY4, key2_dist, key2_hub, key2_make,
     key4_beta, key4_extend, key4_from_key2, per_plane_hub_mask,
@@ -74,33 +80,56 @@ def frontier_active_rows(plan: RelaxPlan, front: torch.Tensor
     return rows, rows.sum()
 
 
+def active_index(rows: torch.Tensor, count: int) -> torch.Tensor:
+    """The indices of the `count` set flags of `rows`, ascending.
+
+    `nonzero` would sync the host for its output size; the count is
+    already on the host, so a stable sort of the flags gives the same
+    indices without a second sync.
+    """
+    order = torch.sort(rows.to(torch.uint8), descending=True, stable=True)
+    return order.indices[:count]
+
+
+def frontier_wave(kind: str, plan: RelaxPlan, g: Graph, full_step,
+                  masked_step, x: torch.Tensor, front: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    """One frontier wave: propagate, relax (masked or full), re-derive.
+
+    `full_step(x)` is the whole-plane wave; `masked_step(x, rows_g)` the
+    same wave over the gathered rows (`engine.gather_rows`). Returns (x',
+    front', ran), front' marking the blocks whose values changed. One host
+    read brings back both whether the frontier `front` is empty and how
+    many rows it activates; an empty frontier runs nothing and returns
+    (x, front, False), the no-op the reference's masked wave computes.
+    (`FrontierTiles.propagate`, a boolean gather of the changed blocks'
+    rows, syncs the host once more on the GPU.)
+    """
+    ft = plan.frontier
+    rows, count = frontier_active_rows(plan, front)
+    live, count = torch.stack([front.any().to(count.dtype), count]).tolist()
+    if not live:
+        return x, front, False
+    WAVES[kind] += 1
+    if count <= ft.rows_cap:
+        WAVES[kind + ".masked"] += 1
+        nx = masked_step(x, gather_rows(plan, g, active_index(rows, count)))
+    else:
+        nx = full_step(x)
+    return nx, ft.changed_blocks(nx != x), True
+
+
 def _frontier_fixpoint(kind: str, plan: RelaxPlan, g: Graph, full_step,
                        masked_step, init: torch.Tensor,
                        front0: torch.Tensor) -> torch.Tensor:
-    """Iterate frontier waves until the changed-block frontier empties.
-
-    `full_step(x)` is the whole-plane wave; `masked_step(x, rows_g)` the
-    same wave over the gathered rows (`engine.gather_rows`). One host sync
-    per wave brings back both whether the frontier is empty and how many
-    rows it activates.
-    """
-    ft = plan.frontier
+    """Iterate `frontier_wave` until the changed-block frontier empties:
+    one host read per wave."""
     x, front = init, front0
     for _ in range(MAX_WAVES):
-        rows, count = frontier_active_rows(plan, front)
-        live, count = torch.stack([front.any().to(count.dtype),
-                                   count]).tolist()
-        if not live:
+        x, front, ran = frontier_wave(kind, plan, g, full_step, masked_step,
+                                      x, front)
+        if not ran:
             break
-        WAVES[kind] += 1
-        if count <= ft.rows_cap:
-            WAVES[kind + ".masked"] += 1
-            ridx = rows.nonzero().squeeze(1)
-            nx = masked_step(x, gather_rows(plan, g, ridx))
-        else:
-            nx = full_step(x)
-        front = ft.changed_blocks(nx != x)
-        x = nx
     return x
 
 
@@ -302,11 +331,12 @@ def repair_base_frontier(plan: RelaxPlan, g_new: Graph, aff: torch.Tensor,
     """
     ft = plan.frontier
     rows = ft.active_rows(ft.changed_blocks(aff.any(0)))
-    if int(rows.sum().item()) > ft.rows_cap:
+    count = int(rows.sum().item())
+    if count > ft.rows_cap:
         return repair_base(plan, g_new, aff, key2_g, hub_mask)
     WAVES["repair_base.masked"] += 1
     src_g, dstg, valid_g, w_g = gather_rows(plan, g_new,
-                                            rows.nonzero().squeeze(1))
+                                            active_index(rows, count))
     emask = valid_g & ~aff[:, src_g] & aff[:, dstg]
     base = relax_rows(key2_g, torch.full_like(key2_g, INF_KEY2), src_g, dstg,
                       emask, w_g, 2, INF_KEY2, hub=hub_mask, clear_bit=1)
@@ -403,3 +433,64 @@ def batchhl_update(g_old: Graph, batch: BatchUpdate,
     aff = search(g_old, g_new, batch, labelling, plan)
     new_labelling = batch_repair(g_new, aff, labelling, plan)
     return g_new, new_labelling, aff
+
+
+def batchhl_update_split(g_old: Graph, batch: BatchUpdate,
+                         labelling: HighwayLabelling, improved: bool = True,
+                         engine: RelaxEngine | None = None
+                         ) -> tuple[Graph, HighwayLabelling, torch.Tensor]:
+    """BHLˢ: insertions and deletions as two sequential sub-batches.
+
+    Takes the `RelaxEngine` (not a plan): the tiling must cover the
+    insertion-applied snapshot, and the deletion sub-batch reuses it
+    unchanged. Re-weights ride the deletion sub-batch: like deletions they
+    touch a live slot and never move topology. engine=None runs the COO
+    reference.
+    """
+    ins = dataclasses.replace(
+        batch, valid=batch.valid & ~batch.is_del & ~batch.is_rew)
+    dele = dataclasses.replace(
+        batch, valid=batch.valid & (batch.is_del | batch.is_rew))
+    plan = g_ins = None
+    if engine is not None:
+        g_ins = apply_batch(g_old, ins)
+        plan = engine.prepare(g_ins)
+    g1, lab1, aff1 = batchhl_update(g_old, ins, labelling, improved, plan,
+                                    g_new=g_ins)
+    if engine is not None:
+        # The deletion sub-batch only flips validity bits of the snapshot
+        # just tiled, so the plan is reused without the fingerprint sync.
+        plan = engine.prepare(g1, topology_changed=False, verify_cache=False)
+    g2, lab2, aff2 = batchhl_update(g1, dele, lab1, improved, plan)
+    return g2, lab2, aff1 | aff2
+
+
+def uhl_update(g_old: Graph, batch: BatchUpdate,
+               labelling: HighwayLabelling, improved: bool = True,
+               engine: RelaxEngine | None = None
+               ) -> tuple[Graph, HighwayLabelling, torch.Tensor]:
+    """UHL⁺: the single-update baseline, one BatchHL call per update.
+
+    With an engine it retiles only on insertions; deletions and re-weights
+    reuse the cached tiling without the fingerprint sync. The op flags are
+    read to the host once for the whole loop.
+    """
+    g, lab = g_old, labelling
+    total_aff = torch.zeros_like(labelling.hub)
+    is_del_h, is_rew_h, valid_h = torch.stack(
+        [batch.is_del, batch.is_rew, batch.valid]).tolist() \
+        if batch.src.numel() else ([], [], [])
+    for i in range(batch.src.shape[0]):
+        single = BatchUpdate(*(f[i:i + 1] for f in (
+            batch.src, batch.dst, batch.is_del, batch.valid, batch.w,
+            batch.is_rew)))
+        plan = g_next = None
+        if engine is not None:
+            is_ins = valid_h[i] and not is_del_h[i] and not is_rew_h[i]
+            g_next = apply_batch(g, single)
+            plan = engine.prepare(g_next, topology_changed=is_ins,
+                                  verify_cache=False)
+        g, lab, aff = batchhl_update(g, single, lab, improved, plan,
+                                     g_new=g_next)
+        total_aff = total_aff | aff
+    return g, lab, total_aff

@@ -147,6 +147,9 @@ class RelaxEngine:
 
     block_v:  destination-block size of the tiling (the kernel's output
               tile).
+    shards:   vertex-shard count of the tiling (the tiles' leading axis;
+              the kernel walks (shard, row)). Every value gives
+              bit-identical sweeps.
     block_e:  row cap: destination blocks with more slots are chunked
               into several rows. None makes one row per block, padded to
               the largest block — on power-law graphs that is most of the
@@ -167,12 +170,15 @@ class RelaxEngine:
     CACHE_PLANS = 2
 
     def __init__(self, block_v: int = 512, block_e: int | None = None, *,
-                 frontier: bool = False, frontier_threshold: float = 0.25,
-                 frontier_block: int = 64,
+                 shards: int = 1, frontier: bool = False,
+                 frontier_threshold: float = 0.25, frontier_block: int = 64,
                  device: str | torch.device | None = None):
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
         self.device = resolve_device(device)
         self.block_v = block_v
         self.block_e = block_e
+        self.shards = shards
         self.frontier = frontier
         self.frontier_threshold = frontier_threshold
         self.frontier_block = frontier_block
@@ -279,7 +285,7 @@ class RelaxEngine:
                       threshold=self.frontier_threshold, device=self.device)
                   if self.frontier else None)
             plan = RelaxPlan(er_ops.prepare_topology(
-                src, dst, keep, g.n, self.block_v, 1, self.block_e,
+                src, dst, keep, g.n, self.block_v, self.shards, self.block_e,
                 device=self.device), ft, g.valid.clone())
             self.retile_count += 1
         else:

@@ -110,11 +110,34 @@ class HighwayLabelling:
         return self.label_mask().sum()
 
 
+def grow_labelling(lab: HighwayLabelling, new_n: int) -> HighwayLabelling:
+    """Widen the labelling planes to `new_n` vertices (grow-in-place).
+
+    New columns hold what a fresh construction at the larger size gives an
+    isolated vertex: dist INF_D, hub False. The landmarks and the highway
+    are kept; the planes are new tensors, so `lab`'s are never written.
+    """
+    old_n = lab.dist.shape[1]
+    if new_n < old_n:
+        raise ValueError(f"grow_labelling cannot shrink: {old_n}->{new_n}")
+    if new_n == old_n:
+        return lab
+    pad = (0, new_n - old_n)
+    return HighwayLabelling(
+        lab.landmarks,
+        torch.nn.functional.pad(lab.dist, pad, value=INF_D),
+        torch.nn.functional.pad(lab.hub, pad, value=False),
+        lab.highway)
+
+
 def landmark_onehot(landmarks: torch.Tensor, n: int) -> torch.Tensor:
-    """bool[V]: vertex is a landmark."""
+    """bool[V]: vertex is a landmark.
+
+    `index_fill_` takes the value as a scalar; an indexed assignment of
+    one would copy it to the GPU first, a host sync.
+    """
     out = torch.zeros(n, dtype=torch.bool, device=landmarks.device)
-    out[landmarks.to(torch.int64)] = True
-    return out
+    return out.index_fill_(0, landmarks.to(torch.int64), True)
 
 
 def per_plane_hub_mask(landmarks_full: torch.Tensor, own: torch.Tensor,
@@ -127,5 +150,4 @@ def per_plane_hub_mask(landmarks_full: torch.Tensor, own: torch.Tensor,
     """
     p = own.shape[0]
     mask = landmark_onehot(landmarks_full, n).expand(p, n).clone()
-    mask[torch.arange(p, device=own.device), own.to(torch.int64)] = False
-    return mask
+    return mask.scatter_(1, own.to(torch.int64)[:, None], False)

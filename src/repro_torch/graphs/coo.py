@@ -70,6 +70,10 @@ class Graph:
     def device(self) -> torch.device:
         return self.src.device
 
+    @property
+    def capacity(self) -> int:
+        return self.src.shape[0] // 2
+
 
 @dataclasses.dataclass(frozen=True)
 class BatchUpdate:
@@ -109,6 +113,52 @@ def from_edges(n: int, edges: np.ndarray, capacity: int, *,
     valid[:2 * m] = True
     return Graph(*(torch.from_numpy(a).to(device) for a in (src, dst, valid, w)),
                  n)
+
+
+def grow(g: Graph, *, capacity: int | None = None,
+         n: int | None = None) -> Graph:
+    """Return `g` with larger static slots: the same edge set, more room.
+
+    New edge slots are free (valid False, src/dst/w zeroed, as
+    `from_edges` pads), and a larger `n` only widens the vertex id space;
+    no existing slot moves. Shrinking is refused: slots past the new
+    capacity could hold live edges, and vertex ids past the new n could be
+    referenced by them. The result shares no storage with `g` once the
+    capacity grows, so `g`'s tensors are never written.
+    """
+    capacity = g.capacity if capacity is None else capacity
+    n = g.n if n is None else n
+    if capacity < g.capacity or n < g.n:
+        raise ValueError(
+            f"grow cannot shrink: capacity {g.capacity}->{capacity}, "
+            f"n {g.n}->{n}")
+    pad = 2 * (capacity - g.capacity)
+    if pad == 0:
+        return Graph(g.src, g.dst, g.valid, g.w, n)
+    return Graph(*(torch.cat([col, col.new_zeros(pad)])
+                   for col in (g.src, g.dst, g.valid, g.w)), n)
+
+
+def batch_requirements(g: Graph, b: BatchUpdate) -> tuple[int, int]:
+    """(required_capacity, required_n) to apply `b` to `g`, on the host.
+
+    `required_capacity` is exact for `apply_batch`'s semantics: occupied
+    slot pairs, minus the pairs the batch's own deletions free (deletions
+    are applied before insertions, with `apply_batch`'s canonical-key
+    match), plus the batch's valid insertions; re-weights take no slot.
+    `required_n` is one past the largest vertex id a valid row touches
+    (0 for a batch with no valid row). The counts are formed on the device
+    and read in one host sync.
+    """
+    valid = b.valid
+    n_ins = ((~b.is_del) & (~b.is_rew) & valid).sum()
+    hit = torch.isin(_canon_key(g.src, g.dst),
+                     _canon_key(b.src, b.dst, b.is_del & valid)) & g.valid
+    top = torch.where(valid, torch.maximum(b.src, b.dst), -1)
+    top = top.max() if top.numel() else top.new_tensor(-1)
+    occupied, freed, n_ins, top = torch.stack(
+        [g.valid.sum(), hit.sum(), n_ins, top.to(torch.int64)]).tolist()
+    return occupied // 2 - freed // 2 + n_ins, top + 1
 
 
 def make_batch(updates, pad_to: int | None = None, *,

@@ -6,6 +6,8 @@ the same update batches (`tests/test_torch_graphs.py` pins it).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 
@@ -23,6 +25,46 @@ def barabasi_albert(n: int, m: int, seed: int = 0) -> np.ndarray:
         targets = [int(repeated[rng.integers(len(repeated))])
                    for _ in range(m)]
     return _dedupe(np.asarray(edges, np.int32))
+
+
+def erdos_renyi(n: int, p: float, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    rows, cols = np.triu_indices(n, k=1)
+    keep = rng.random(rows.shape[0]) < p
+    return np.stack([rows[keep], cols[keep]], axis=1).astype(np.int32)
+
+
+def random_connected(n: int, extra_edges: int, seed: int = 0) -> np.ndarray:
+    """Random tree + extra random edges — always connected."""
+    rng = np.random.default_rng(seed)
+    edges = [(v, int(rng.integers(v))) for v in range(1, n)]
+    for _ in range(extra_edges):
+        u, v = rng.integers(n), rng.integers(n)
+        if u != v:
+            edges.append((int(u), int(v)))
+    return _dedupe(np.asarray(edges, np.int32))
+
+
+def grid_mesh(rows: int, cols: int) -> np.ndarray:
+    """4-connected grid."""
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    e = []
+    e.append(np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1))
+    e.append(np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], axis=1))
+    return np.concatenate(e).astype(np.int32)
+
+
+def road_grid(n: int, max_weight: int = 8, seed: int = 0) -> np.ndarray:
+    """Road-like weighted planar graph: a 4-connected grid of ~n vertices
+    with uniform integer weights in [1, max_weight] per edge (large
+    diameter, bounded degree). Returns edges [E, 3] = (u, v, w); the
+    vertex count is rows·cols = `edges[:, :2].max() + 1`."""
+    rows = max(2, int(math.isqrt(n)))
+    cols = max(2, (n + rows - 1) // rows)
+    e = grid_mesh(rows, cols)
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, max_weight + 1, size=e.shape[0])
+    return np.concatenate([e, w[:, None]], axis=1).astype(np.int32)
 
 
 def random_batch_updates(edges: np.ndarray, n: int, n_ins: int, n_del: int,
@@ -80,6 +122,21 @@ def random_batch_updates(edges: np.ndarray, n: int, n_ins: int, n_del: int,
             out.append((u, v, 2, int(rng.integers(1, max(2, max_weight + 1)))))
     rng.shuffle(out)
     return out
+
+
+def zipf_vertices(rng: np.random.Generator, n: int, size: int,
+                  a: float = 1.2) -> np.ndarray:
+    """Bounded-Zipf(a) vertex ids over [0, n): P(id = k) ∝ (k + 1)^-a.
+
+    Low ids are the oldest, highest-degree vertices of the BA generator,
+    so skewed query traffic concentrates on the hubs. The law is
+    normalised over [0, n), not sampled unbounded and clipped (which
+    would pile the tail mass onto vertex n-1).
+    """
+    if a <= 1.0:
+        raise ValueError(f"zipf exponent must be > 1, got {a}")
+    w = np.arange(1, n + 1, dtype=np.float64) ** -a
+    return rng.choice(n, size=size, p=w / w.sum()).astype(np.int32)
 
 
 def _dedupe(edges: np.ndarray) -> np.ndarray:

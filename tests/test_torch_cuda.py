@@ -246,3 +246,74 @@ def test_frontier_update_on_card_equals_full_sweep(dev, improved,
         assert torch.equal(a, b)
     if threshold == 1.0:
         assert WAVES["repair.masked"] == WAVES["repair"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["unfused", "fused", "frontier"])
+def test_pipelined_update_on_card_equals_cpu(dev, mode):
+    """The pipelined update through the kernels on the card (the fused
+    chunks lowering planes in place, or the frontier chunks) commits the
+    CPU COO path's snapshot, and leaves the snapshot it started from
+    untouched."""
+    from repro_torch.core import snapshot as tsnap
+    from repro_torch.graphs import coo
+    n = 3000
+    edges = gen.barabasi_albert(n, 3, seed=10)
+    ups = gen.random_batch_updates(edges, n, n_ins=30, n_del=30, seed=11)
+    out = []
+    for where in ("cpu", dev):
+        g, lab = api.build(n, edges, num_landmarks=8, device=where,
+                           engine=None)
+        batch = coo.make_batch(ups, pad_to=64, device=where)
+        g_next = coo.apply_batch(g, batch)
+        plan = None
+        if where != "cpu":
+            plan = RelaxEngine(block_v=64, block_e=128,
+                               frontier=mode == "frontier",
+                               frontier_block=16,
+                               device=where).prepare(g_next)
+        before = [t._version for t in (g.src, g.valid, g.w, lab.dist,
+                                       lab.hub, lab.highway)]
+        nxt, aff = tsnap.run_pipelined_update(tsnap.pipelined_update(
+            tsnap.Snapshot(0, g, lab), batch, plan=plan, g_new=g_next,
+            chunk_sweeps=2, fused=mode == "fused"))
+        assert before == [t._version for t in (g.src, g.valid, g.w,
+                                               lab.dist, lab.hub,
+                                               lab.highway)]
+        out.append([x.cpu() for x in (nxt.graph.src, nxt.graph.valid,
+                                      nxt.labelling.dist, nxt.labelling.hub,
+                                      nxt.labelling.highway, aff)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_serve_loop_on_card_equals_cpu(dev, pipeline, tmp_path):
+    """The serve loop on the card (kernels A and B) commits the CPU
+    loop's snapshots, version by version, and writes the same checkpoint
+    bytes."""
+    import filecmp
+    import os
+    from repro_torch.launch.serve import ServeConfig, ServeLoop
+    reps = []
+    for where in ("cpu", dev):
+        cfg = ServeConfig(n=2000, deg=3, landmarks=8, batches=2,
+                          batch_size=40, queries=32, qps=5000.0,
+                          microbatch=8, pipeline=pipeline, block_v=64,
+                          block_e=128, quiet=True, keep_history=True,
+                          ckpt_dir=str(tmp_path / str(where)))
+        reps.append(ServeLoop(cfg, device=where).run())
+    for v in reps[0].history:
+        a, b = reps[0].history[v], reps[1].history[v]
+        for x, y in ((a.graph.src, b.graph.src), (a.graph.valid,
+                                                   b.graph.valid),
+                     (a.labelling.dist, b.labelling.dist),
+                     (a.labelling.hub, b.labelling.hub)):
+            assert torch.equal(x, y.cpu())
+    step = "step_2"
+    names = sorted(os.listdir(tmp_path / "cpu" / step))
+    match, mismatch, errors = filecmp.cmpfiles(
+        tmp_path / "cpu" / step, tmp_path / str(dev) / step, names,
+        shallow=False)
+    assert mismatch == errors == []

@@ -154,3 +154,18 @@ def test_generator_copy_matches_reference(seed):
                                              max_weight=5)):
         assert (tgen.random_batch_updates(e_t, 300, seed=seed, **kw)
                 == jgen.random_batch_updates(e_t, 300, seed=seed, **kw))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_serving_generators_match_reference(seed):
+    """The generators the scenarios and the serve loop draw from."""
+    for t, j in ((tgen.random_connected(60, 40, seed),
+                  jgen.random_connected(60, 40, seed)),
+                 (tgen.erdos_renyi(40, 0.1, seed),
+                  jgen.erdos_renyi(40, 0.1, seed)),
+                 (tgen.grid_mesh(5, 7), jgen.grid_mesh(5, 7)),
+                 (tgen.road_grid(50, 6, seed), jgen.road_grid(50, 6, seed)),
+                 (tgen.zipf_vertices(np.random.default_rng(seed), 90, 64),
+                  jgen.zipf_vertices(np.random.default_rng(seed), 90, 64))):
+        np.testing.assert_array_equal(t, j)
+        assert t.dtype == j.dtype

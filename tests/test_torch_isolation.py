@@ -17,7 +17,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 
 def test_import_leaves_jax_and_repro_out():
-    code = ("import sys, repro_torch.api, repro_torch.convert; "
+    code = ("import sys, repro_torch.api, repro_torch.convert, "
+            "repro_torch.launch.serve, repro_torch.core.snapshot, "
+            "repro_torch.core.growth, repro_torch.checkpoint.manager; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; print(bad)")
@@ -42,3 +44,11 @@ def test_build_without_device_raises_without_cuda():
         pytest.skip("a CUDA device is present: device=None means the GPU")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.build(4, np.array([[0, 1], [1, 2]]), num_landmarks=1)
+
+
+def test_serve_loop_without_device_raises_without_cuda():
+    from repro_torch.launch.serve import ServeConfig, ServeLoop
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the GPU")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeLoop(ServeConfig(n=50, batches=1, quiet=True))
