@@ -39,9 +39,8 @@
    tile slots, only `slot_t` of the padding ones, w and mask of the live
    edges — beside the bound of every padded tile slot, and the device
    time of each of its kernels — key transpose, mask pack, `inf` fill,
-   sweep — from a `torch.profiler` pass over three calls, run again when
-   it recorded fewer sweep launches than calls, and failing the phase
-   after three such passes); one query microbatch under
+   sweep — from one `torch.profiler` pass over three calls, failing the
+   phase when its parts sum to 0); one query microbatch under
    `torch.profiler` (device-busy ms, against the same call's median host
    ms timed without the profiler for the idle share), and its plan-cache
    hit (`RelaxEngine.prepare` of the queried snapshot: device ms, host
@@ -55,7 +54,11 @@
    table, bags of 50, batches of 512 and 65,536), beside
    `torch.nn.functional.embedding_bag` as the library yardstick. Each of
    those two entry points is its kernel's path: its count is set to 0
-   just before the call and read just after.
+   just before the call and read just after. Every profiler pass must
+   record each hand-written kernel as often as its wrapper launched it
+   (and kernel A's transpose, fill and pack once per launch); a pass that
+   lost records is logged and run again, and three such passes in a row
+   fail the phase.
 6. The serving path at full width (`repro_torch.launch.serve`, the
    production config: BA(2^20, 4), 32 landmarks, batches of 1024, query
    microbatches of 32, 256 queries a tick at 2000 per second). First
@@ -176,26 +179,59 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_kernels(torch, fn) -> tuple[dict, float, float]:
+#: The device name of each hand-written kernel that the profiler passes
+#: check, and its wrapper's count in `read_launches`.
+COUNTED = {"relax_sweep_kernel": "relax_sweep", "minplus_kernel": "minplus",
+           "edge_relax_kernel": "edge_relax"}
+PROFILER_TRIES = 3
+#: Profiler passes that recorded fewer device kernels than were launched,
+#: each discarded and run again (see `device_kernels`).
+short_passes: list = []
+
+
+def device_kernels(torch, fn, parts: tuple = ()) -> tuple[dict, float,
+                                                          float]:
     """Run `fn()` once under `torch.profiler`: ({kernel name: [device ms,
     launches]}, device-busy ms, host ms). The card runs one stream here,
-    so the kernels' times add up to the busy time."""
+    so the kernels' times add up to the busy time.
+
+    The pass must record each kernel of `COUNTED` as often as its wrapper
+    launched it during `fn()`, and each kernel named in `parts` as often
+    as kernel A's wrapper ran (one of each per run). The profiler now and
+    then loses the device records of whole calls (`tools/probe_profiler.py`
+    counts how often), so a short pass is logged, kept in `short_passes`
+    and run again; after `PROFILER_TRIES` short passes the phase fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    seen_short = []
+    for _ in range(PROFILER_TRIES):
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    per: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            row = per.setdefault(e.name[:90], [0.0, 0])
-            row[0] += e.time_range.elapsed_us() / 1e3
-            row[1] += 1
-    return per, sum(v[0] for v in per.values()), host_ms
+        before = read_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        after = read_launches()
+        per: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                row = per.setdefault(e.name[:90], [0.0, 0])
+                row[0] += e.time_range.elapsed_us() / 1e3
+                row[1] += 1
+        want = {k: after[c] - before[c] for k, c in COUNTED.items()}
+        want.update({k: want["relax_sweep_kernel"] for k in parts})
+        got = {k: sum(v[1] for name, v in per.items() if k in name)
+               for k in want}
+        if got == want:
+            return per, sum(v[0] for v in per.values()), host_ms
+        seen_short.append({"launched": want, "recorded": got})
+        short_passes.append(seen_short[-1])
+        log(f"profiler pass short, run again: launched {want}, recorded "
+            f"{got}")
+    raise AssertionError(f"{PROFILER_TRIES} profiler passes in a row lost "
+                         f"device records: {seen_short}")
 
 
 def sweep_parts(per: dict) -> dict:
@@ -207,22 +243,19 @@ def sweep_parts(per: dict) -> dict:
     return out
 
 
-def sweep_split(torch, fn, reps: int = 3, tries: int = 3) -> tuple[dict,
-                                                                   list]:
+def sweep_split(torch, fn, per_plane: bool, reps: int = 3) -> dict:
     """Kernel A's device ms per call by its kernels, from one profiler pass
-    over `reps` warm calls. A pass that did not record every call's sweep
-    kernel runs again, up to `tries` passes; then the phase fails. Returns
-    (ms per part, sweep launches each pass recorded)."""
-    seen = []
-    for _ in range(tries):
-        per = device_kernels(torch, lambda: [fn() for _ in range(reps)])[0]
-        seen.append(sum(v[1] for k, v in per.items()
-                        if "relax_sweep_kernel" in k))
-        parts = {k: v / reps for k, v in sweep_parts(per).items()}
-        if seen[-1] == reps and sum(parts.values()) > 0:
-            return parts, seen
-    raise AssertionError(f"kernel A's split: the profiler recorded {seen} "
-                         f"of {reps} sweep launches in {tries} passes")
+    over `reps` warm calls that recorded every kernel of every call (the
+    mask pack only runs for a per-plane mask). Fails the phase if the
+    parts sum to 0."""
+    parts = ("transpose_kernel", "fill_chunked_kernel") + (
+        ("pack_mask_kernel",) if per_plane else ())
+    per = device_kernels(torch, lambda: [fn() for _ in range(reps)],
+                         parts)[0]
+    out = {k: v / reps for k, v in sweep_parts(per).items()}
+    if sum(out.values()) <= 0:
+        raise AssertionError(f"kernel A's split sums to 0: {out}")
+    return out
 
 
 def profiled_us(torch, fn, match: str, reps: int = 20) -> float:
@@ -1220,7 +1253,8 @@ def main() -> int:
             raise AssertionError(f"relax_sweep != plain at full size: {name}")
         ms, plain = paired_ms(lambda: rk.relax_sweep(*args),
                               lambda: rk.relax_sweep_plain(*args), 10, 3)
-        parts, passes = sweep_split(torch, lambda: rk.relax_sweep(*args))
+        parts = sweep_split(torch, lambda: rk.relax_sweep(*args),
+                            mask.dim() == 2)
         p = keys.shape[0]
         # The mask at each live tile slot's edge; the (plane, slot) pairs
         # it lets through, and the slots some plane lets through.
@@ -1247,13 +1281,12 @@ def main() -> int:
                                padded_bytes=padded_bytes,
                                max_abs_err=err, planes=p,
                                live_plane_edges=plane_edges,
-                               device_ms=parts, profiler_passes=passes))
+                               device_ms=parts))
         log(f"relax_sweep {name}: [{p}, {N}] keys, {bg.slots} slots "
             f"({live_slots} live): kernel {ms:.3f} ms, plain {plain:.3f} ms,"
             f" bound {bms:.4f} ms ({by}, {nbytes} needed bytes), padded-tile "
             f"bound {padded_ms:.4f} ms ({padded_bytes} bytes), max_abs_err "
-            f"{err}; device ms of one call {parts} (sweeps recorded per "
-            f"profiler pass {passes})")
+            f"{err}; device ms of one call {parts}")
     del bou_mask, int_mask, perm_live
 
     # One query microbatch under the profiler: how busy the card is, and
@@ -1353,7 +1386,7 @@ def main() -> int:
                    relax_sweep=sweep_rows, query_profile=q_prof,
                    minplus=mp_rows,
                    frontier=frontier, edge_relax=er_row, embed_bag=bag_rows,
-                   serve=serve,
+                   serve=serve, profiler_short_passes=short_passes,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")
     log("summary: " + json.dumps(summary))

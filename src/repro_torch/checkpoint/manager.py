@@ -26,6 +26,8 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 CURRENT = "CURRENT"
 
 
@@ -152,13 +154,15 @@ def load_leaves(ckpt_dir: str, step: int, names: tuple[str, ...] | None = None,
 
 
 def restore(ckpt_dir: str, tree_like: dict, step: int | None = None, *,
-            device: str | torch.device = "cpu") -> tuple[dict, int]:
-    """Restore a flat dict of tensors shaped like `tree_like` onto `device`,
-    each leaf cast to its template's dtype; returns (tree, step).
+            device: str | torch.device | None = None) -> tuple[dict, int]:
+    """Restore a flat dict of tensors shaped like `tree_like` onto `device`
+    (None: the GPU, raising without one), each leaf cast to its template's
+    dtype; returns (tree, step).
 
     Placing leaves on a mesh (the reference's `shardings`) comes with the
     port's mesh support.
     """
+    device = resolve_device(device)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")

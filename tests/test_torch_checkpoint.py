@@ -151,7 +151,7 @@ def test_manager_save_restore_and_nested_names(tmp_path):
                            shallow=False), name
     like = {"b": torch.zeros(3, dtype=torch.int64),
             "c__y": torch.zeros(2, dtype=torch.bool)}
-    back, step = tckpt.restore(str(tmp_path / "t"), like)
+    back, step = tckpt.restore(str(tmp_path / "t"), like, device="cpu")
     assert step == 3 and back["b"].dtype == torch.int64
     assert back["b"].tolist() == [0, 1, 2] and back["c__y"].all()
     leaves = tckpt.load_leaves(str(tmp_path / "t"), 3, ("a", "c__x"),
@@ -160,7 +160,7 @@ def test_manager_save_restore_and_nested_names(tmp_path):
     with pytest.raises(FileNotFoundError, match="lacks leaf"):
         tckpt.load_leaves(str(tmp_path / "t"), 3, ("nope",))
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
-        tckpt.restore(str(tmp_path / "empty"), like)
+        tckpt.restore(str(tmp_path / "empty"), like, device="cpu")
 
 
 def test_publish_and_prune_protect_the_published_range(tmp_path):

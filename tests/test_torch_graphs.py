@@ -169,3 +169,42 @@ def test_serving_generators_match_reference(seed):
                   jgen.zipf_vertices(np.random.default_rng(seed), 90, 64))):
         np.testing.assert_array_equal(t, j)
         assert t.dtype == j.dtype
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("directed", [True, False])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_chip_smoke_bfs_oracle_matches_scipy(directed, seed):
+    """chip_smoke's multi-source BFS (its oracle for phases 4 and 6) gives
+    `scipy.sparse.csgraph.shortest_path(unweighted=True)`'s hop distances,
+    with unreachable vertices and repeated sources."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+    cs = _chip_smoke()
+    rng = np.random.default_rng(seed)
+    n, reach = 80, 60   # vertices reach.. have no arcs at all
+    m = 150
+    src = rng.integers(0, reach, m)
+    dst = rng.integers(0, reach, m)
+    if not directed:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    csr = sp.csr_matrix((np.ones(len(src), np.int8), (src, dst)),
+                        shape=(n, n))
+    sources = np.concatenate([rng.integers(0, n, 12), [3, 3, n - 1]])
+    inf_d = 1 << 20
+    got = cs.bfs_dist(csr, sources, np, inf_d)
+    want = shortest_path(csr, directed=True, unweighted=True,
+                         indices=sources)
+    want = np.where(np.isinf(want), inf_d, want).astype(np.int64)
+    assert got.shape == (len(sources), n)
+    np.testing.assert_array_equal(got, want)
+    assert (got == inf_d).any() and (got[:, reach:] == inf_d).sum() > 0

@@ -52,3 +52,12 @@ def test_serve_loop_without_device_raises_without_cuda():
         pytest.skip("a CUDA device is present: device=None means the GPU")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeLoop(ServeConfig(n=50, batches=1, quiet=True))
+
+
+def test_checkpoint_restore_without_device_raises_without_cuda(tmp_path):
+    from repro_torch.checkpoint import manager as tckpt
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the GPU")
+    tckpt.save(str(tmp_path), 0, {"x": np.arange(3, dtype=np.int64)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tckpt.restore(str(tmp_path), {"x": torch.zeros(3, dtype=torch.int64)})
