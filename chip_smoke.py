@@ -10,7 +10,8 @@
 2. Holds each kernel to its plain PyTorch version on the card: the three
    integer kernels with `torch.equal`, the embedding bag to rtol = atol =
    1e-5 (float32 sums in another order), over each kernel's edge cases
-   (for the relax sweep every case of `tests/_sweep_cases.py`, for
+   (for the relax sweep every case of `tests/_sweep_cases.py`, where the
+   autotuner's `sorted` impl is held equal to the kernel as well; for
    min-plus and the legacy edge relax every case of
    `tests/_kernel_cases.py`, as `tests/test_torch_cuda.py` runs them; and
    the ValueError of each block_v limit).
@@ -78,7 +79,27 @@
    growth and checkpoint seconds; latency from arrival to answer (p50,
    p95, p99), mean staleness, checkpoint bytes and restore seconds, peak
    device memory and the phase's wall time.
-7. Prints a `summary:` line with every number above as JSON, the
+7. Directed BatchHL at full width: the BA(2^20, 4) edges oriented u->v
+   with probability 0.7 (else v->u, `numpy.random.default_rng(7)`), 2048
+   free arc slots, the 32 landmarks of highest total degree; built through
+   a forward and a reverse `RelaxEngine` (block_v 512, block_e 4096), one
+   `batchhl_update_directed` of 512 deletions and 512 insertions, 1024
+   uniform queries in microbatches of 32 (max_steps 64). fwd/bwd dist equal
+   scipy BFS (on the arcs and on their transpose) after build and update,
+   64 answers equal scipy BFS, the update and one microbatch equal the COO
+   path, and kernel A ran. Build, update and per-microbatch seconds, waves
+   per kind, both orientations' tiling seconds and peak device memory.
+8. The autotuner at full width: phase 6's run A in pipeline mode (without
+   its checkpoints and history) with `autotune=True` and a tuning table
+   under `build/chip_smoke_tune/` (removed after): it tunes once at the
+   fresh snapshot, kernel A under each launch shape of the reference's
+   grid against the `sorted` impl. Every candidate's compile and steady
+   microseconds, the winner, the COO path's time, the
+   tune's wall seconds and the peak device memory through the tune and
+   the build. Its final snapshot must equal run A's; kernel A must have run
+   if the winner is a kernel config; a second loop on the same table must
+   tune nothing and commit the same.
+9. Prints a `summary:` line with every number above as JSON, the
    `{"kernels": [...]}` line (kernel A's and B's launches are run A's),
    the card line, and last `{"ok": true, "device": {...}}`.
 
@@ -356,6 +377,7 @@ def check_kernels_small(torch, np, dev) -> int:
     import _kernel_cases as kernel_cases
     import _sweep_cases as sweep_cases
     from repro_torch.kernels.edge_relax import kernel as rk
+    from repro_torch.kernels.edge_relax import ops as rops
     from repro_torch.kernels.minplus import kernel as mk
 
     cases = 0
@@ -370,6 +392,15 @@ def check_kernels_small(torch, np, dev) -> int:
                 bad = int((got != want).sum())
                 raise AssertionError(f"relax_sweep != plain: {name} "
                                      f"{c.label} ({bad} entries differ)")
+            # The autotuner's sorted impl on the same sweep.
+            sg = rops.prepare_sorted(c.src, c.dst, c.keep, c.n, device=dev)
+            srt = rops.relax_sweep_sorted(args[0], sg, args[7], c.step, c.inf,
+                                          args[8], clear_bit=c.clear,
+                                          hub=args[1])
+            torch.cuda.synchronize()
+            if not torch.equal(srt, got):
+                raise AssertionError(f"sorted impl != relax_sweep: {name} "
+                                     f"{c.label}")
             cases += 1
     # One block_v past the shared-memory limit raises, the limit named.
     limit = rk.SWEEP_MAX_BLOCK_V
@@ -1024,6 +1055,7 @@ def run_serve(torch, np, dev, g0, lab0, batch, full, trickle, fr) -> dict:
     rep = serve("resume", pipeline=True, ckpt_dir=str(SERVE_DIR / "r"),
                 resume=True)
     same_snapshot(torch, rep.final, rep_a.final, "resumed vs pipeline")
+    final_a = rep_a.final
     del rep, rep_a
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
 
@@ -1042,6 +1074,246 @@ def run_serve(torch, np, dev, g0, lab0, batch, full, trickle, fr) -> dict:
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 6: {out['wall_s']:.1f} s, peak device memory "
         f"{out['peak_gb']:.2f} GB")
+    return out, base, final_a
+
+
+# --- phase 7: directed BatchHL at full width -----------------------------------
+
+DIRECTED_P = 0.7       # an edge u-v becomes u->v with this probability
+DIRECTED_SLACK = 2048  # free arc slots
+DIRECTED_CHECK = 64    # answers held to scipy BFS
+
+
+def percentile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def run_directed(torch, np, dev, edges) -> dict:
+    """Phase 7: the BA(2^20, 4) edges oriented at random into arcs, built,
+    updated once (512 deletions, 512 insertions) and queried (1024 pairs)
+    through one engine per orientation; held to scipy BFS and to the COO
+    path."""
+    from repro_torch import api
+    from repro_torch.core import directed as tdir
+    from repro_torch.core import engine as teng
+    from repro_torch.graphs.coo import INF_D, make_batch
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    rng = np.random.default_rng(7)
+    fwd = rng.random(len(edges)) < DIRECTED_P
+    arcs = np.where(fwd[:, None], edges[:, :2], edges[:, 1::-1])
+    arcs = np.ascontiguousarray(arcs, np.int32)
+    deg = np.bincount(arcs.ravel(), minlength=N)
+    landmarks = np.argsort(-deg, kind="stable")[:LANDMARKS].astype(np.int32)
+    g0 = tdir.from_arcs(N, arcs, len(arcs) + DIRECTED_SLACK, device=dev)
+    lms = torch.from_numpy(landmarks).to(dev)
+
+    def engines():
+        return [teng.RelaxEngine(block_v=api.BLOCK_V, block_e=api.BLOCK_E,
+                                 device=dev) for _ in range(2)]
+
+    def plans(engs, g):
+        """Each orientation's plan from its engine, and the host seconds
+        of each prepare."""
+        ps, secs = [], []
+        for eng, og in zip(engs, (g.fwd(), g.rev())):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ps.append(eng.prepare(og))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return ps, secs
+
+    engs = engines()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    teng.WAVES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (pf, pb), out["build_tiling_s"] = plans(engs, g0)
+    lab0 = tdir.build_directed_labelling(g0, lms, pf, pb)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["build_waves"] = dict(teng.WAVES)
+
+    existing = set(zip(arcs[:, 0].tolist(), arcs[:, 1].tolist()))
+    urng = np.random.default_rng(8)
+    picks = urng.choice(len(arcs), size=N_DEL, replace=False)
+    ups = [(int(arcs[i, 0]), int(arcs[i, 1]), True) for i in picks]
+    while len(ups) < N_DEL + N_INS:
+        u, v = (int(x) for x in urng.integers(0, N, 2))
+        if u != v and (u, v) not in existing:
+            existing.add((u, v))
+            ups.append((u, v, False))
+    batch = make_batch(ups, pad_to=N_DEL + N_INS, device=dev)
+    teng.WAVES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g1_new = tdir.apply_batch_directed(g0, batch)
+    (pf1, pb1), out["update_tiling_s"] = plans(engs, g1_new)
+    g1, lab1, aff1 = tdir.batchhl_update_directed(g0, batch, lab0, pf1, pb1,
+                                                  g_new=g1_new)
+    torch.cuda.synchronize()
+    out["update_s"] = time.perf_counter() - t0
+    out["update_waves"] = dict(teng.WAVES)
+    out["affected"] = int(aff1.sum())
+
+    qrng = np.random.default_rng(9)
+    qs = qrng.integers(0, N, QUERIES).astype(np.int32)
+    qt = qrng.integers(0, N, QUERIES).astype(np.int32)
+    teng.WAVES.clear()
+    mb_ms, answers = [], []
+    for i in range(QUERIES // MICROBATCH):
+        sl = slice(i * MICROBATCH, (i + 1) * MICROBATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers.append(tdir.directed_query(
+            g1, lab1, torch.from_numpy(qs[sl]).to(dev),
+            torch.from_numpy(qt[sl]).to(dev), max_steps=MAX_STEPS,
+            plan_fwd=pf1, plan_bwd=pb1))
+        torch.cuda.synchronize()
+        mb_ms.append((time.perf_counter() - t0) * 1e3)
+    answers = torch.cat(answers).cpu().numpy()
+    out["launches"] = read_launches()
+    out["bibfs_waves"] = teng.WAVES["directed_bibfs"]
+    out["query_mb_ms"] = dict(p50=statistics.median(mb_ms),
+                              p99=percentile(mb_ms, 0.99), max=max(mb_ms),
+                              runs=mb_ms)
+    out["reachable"] = int((answers < INF_D).sum())
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if out["launches"]["relax_sweep"] <= 0:
+        raise AssertionError("directed BatchHL launched no relax sweep")
+    log(f"phase 7: directed BA({N}, {BA_M}) {len(arcs)} arcs, capacity "
+        f"{len(arcs) + DIRECTED_SLACK}; build {out['build_s']:.3f} s "
+        f"(tilings {out['build_tiling_s']}), waves {out['build_waves']}; "
+        f"update {out['update_s']:.3f} s (tilings {out['update_tiling_s']}), "
+        f"waves {out['update_waves']}, {out['affected']} affected; queries "
+        f"p50 {out['query_mb_ms']['p50']:.1f} ms p99 "
+        f"{out['query_mb_ms']['p99']:.1f} ms per microbatch, "
+        f"{out['bibfs_waves'] / len(mb_ms):.2f} BiBFS waves per microbatch, "
+        f"{out['reachable']}/{QUERIES} reachable; launches {out['launches']};"
+        f" peak {out['peak_gb']:.2f} GB")
+
+    # Hold it: landmark distances both ways, sampled answers, the COO path.
+    t0 = time.perf_counter()
+    for tag, g, lab in (("build", g0, lab0), ("update", g1, lab1)):
+        csr = csr_of(g.fwd(), np)
+        for name, plane, m in (("fwd", lab.fwd, csr), ("bwd", lab.bwd,
+                                                       csr.T.tocsr())):
+            want = bfs_dist(m, landmarks, np, INF_D)
+            if not np.array_equal(plane.dist.cpu().numpy(), want):
+                raise AssertionError(f"directed {name}.dist after {tag} != "
+                                     "scipy BFS")
+    k = DIRECTED_CHECK
+    want = bfs_dist(csr_of(g1.fwd(), np), qs[:k], np, INF_D)[np.arange(k),
+                                                            qt[:k]]
+    if not np.array_equal(answers[:k], want):
+        raise AssertionError("directed answers != scipy BFS")
+    g_ref, lab_ref, aff_ref = tdir.batchhl_update_directed(g0, batch, lab0)
+    for name, a, b in (("src", g_ref.src, g1.src), ("dst", g_ref.dst, g1.dst),
+                       ("valid", g_ref.valid, g1.valid), ("w", g_ref.w, g1.w),
+                       ("aff", aff_ref, aff1)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"directed update: COO path != kernel path "
+                                 f"on {name}")
+    for plane in ("fwd", "bwd"):
+        for f in ("dist", "hub", "highway"):
+            if not torch.equal(getattr(getattr(lab_ref, plane), f),
+                               getattr(getattr(lab1, plane), f)):
+                raise AssertionError(f"directed update: COO path != kernel "
+                                     f"path on {plane}.{f}")
+    del g_ref, lab_ref, aff_ref
+    ans_ref = tdir.directed_query(
+        g1, lab1, torch.from_numpy(qs[:MICROBATCH]).to(dev),
+        torch.from_numpy(qt[:MICROBATCH]).to(dev), max_steps=MAX_STEPS)
+    if not np.array_equal(ans_ref.cpu().numpy(), answers[:MICROBATCH]):
+        raise AssertionError("directed answers: COO path != kernel path")
+    out["check_s"] = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 7: fwd/bwd dist == scipy BFS (and on the transpose) from "
+        f"all {LANDMARKS} landmarks after build and update; {k} answers == "
+        f"scipy BFS; the update and one microbatch == the COO path "
+        f"({out['check_s']:.1f} s of checks); phase {out['wall_s']:.1f} s")
+    return out
+
+
+# --- phase 8: the autotuner at full width ----------------------------------------
+
+TUNE_DIR = ROOT / "build" / "chip_smoke_tune"   # the tuning table, removed
+
+
+def run_autotune(torch, dev, base: dict, want) -> dict:
+    """Phase 8: phase 6's run A (pipeline mode, without its checkpoints and
+    history) with `autotune=True` and a tuning table on disk: it tunes once,
+    at the fresh snapshot, and serves the winner. Its final snapshot must be
+    run A's (`want`); a second loop on the same table must tune nothing and
+    commit the same."""
+    import shutil
+    from repro_torch.launch.serve import ServeConfig, ServeLoop
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    table = str(TUNE_DIR / "table.json")
+    cfg = dict(base, pipeline=True, autotune=True, tune_table=table)
+    out: dict = {}
+
+    def peak_at_start(_snap):
+        out["peak_gb_tune_and_build"] = torch.cuda.max_memory_allocated() / 1e9
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    loop = ServeLoop(ServeConfig(**cfg), device=dev)
+    loop.on_start = peak_at_start
+    rep = loop.run()
+    torch.cuda.synchronize()
+    out["run_t_s"] = time.perf_counter() - t0
+    out["launches"] = read_launches()
+    res = loop.engine.last_tune
+    if loop.engine.tune_count != 1 or res is None:
+        raise AssertionError(f"run T tuned {loop.engine.tune_count} times")
+    out["tune"] = dict(
+        winner=res.config.to_dict(), steady_us=res.steady_us,
+        compile_us=res.compile_us, coo_us=res.jnp_us, wall_s=res.wall_s,
+        candidates=[dict(config=c.to_dict(), compile_us=cu, steady_us=su)
+                    for c, cu, su in res.candidates])
+    out["engine"] = dict(block_v=loop.engine.block_v,
+                         block_e=loop.engine.block_e,
+                         retiles=loop.engine.retile_count)
+    out["ticks"] = [dict(tick=t.tick, update_s=t.update_s)
+                    for t in rep.ticks]
+    out["latency_s"] = rep.latency_percentiles()
+    for c in out["tune"]["candidates"]:
+        log(f"phase 8 candidate {c['config']}: compile {c['compile_us']:.1f} "
+            f"us, steady {c['steady_us']:.1f} us")
+    log(f"phase 8 run T: winner {res.config.to_dict()} steady "
+        f"{res.steady_us:.1f} us (COO path {res.jnp_us:.1f} us); tune wall "
+        f"{res.wall_s:.1f} s; peak device memory through the tune and the "
+        f"build {out['peak_gb_tune_and_build']:.2f} GB; run {out['run_t_s']:.1f}"
+        f" s, ticks {[round(t['update_s'], 3) for t in out['ticks']]} s, "
+        f"engine {out['engine']}, launches {out['launches']}")
+    same_snapshot(torch, rep.final, want, "run T vs run A")
+    if res.config.impl == "kernel" and out["launches"]["relax_sweep"] <= 0:
+        raise AssertionError("run T's kernel winner launched no relax sweep")
+    del rep, loop
+
+    t0 = time.perf_counter()
+    loop = ServeLoop(ServeConfig(**cfg), device=dev)
+    rep = loop.run()
+    torch.cuda.synchronize()
+    out["run_t2_s"] = time.perf_counter() - t0
+    if loop.engine.tune_count != 0:
+        raise AssertionError("run T' tuned again on the same table")
+    same_snapshot(torch, rep.final, want, "run T' vs run A")
+    del rep, loop
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 8: run T == run A's final snapshot; run T' "
+        f"({out['run_t2_s']:.1f} s) tuned nothing and == run A; phase "
+        f"{out['wall_s']:.1f} s")
     return out
 
 
@@ -1084,7 +1356,8 @@ def main() -> int:
 
     # --- 2. kernels against plain versions -----------------------------------
     cases = check_kernels_small(torch, np, dev)
-    log(f"phase 2: {cases} kernel cases equal their plain versions")
+    log(f"phase 2: {cases} kernel cases equal their plain versions (and "
+        "the sorted impl equals kernel A on every relax-sweep case)")
 
     # --- 3. the main path ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1335,10 +1608,18 @@ def main() -> int:
     bag_rows = time_embed_bag(torch, dev)
 
     # --- 6. the serving loop at full width ------------------------------------
-    serve = run_serve(torch, np, dev, g0, lab0, batch, (g1, lab1, aff1),
-                      trickle, fr_engine)
+    serve, serve_base, final_a = run_serve(
+        torch, np, dev, g0, lab0, batch, (g1, lab1, aff1), trickle, fr_engine)
 
-    # --- 7. the kernels line and the summary --------------------------------------
+    # --- 7. directed BatchHL at full width -----------------------------------
+    del g1, lab1, aff1, fr_engine, trickle, lab_eff, key2, hub_mask, ds
+    directed = run_directed(torch, np, dev, edges)
+
+    # --- 8. the autotuner at full width ---------------------------------------
+    autotune = run_autotune(torch, dev, serve_base, final_a)
+    del final_a
+
+    # --- 9. the kernels line and the summary --------------------------------------
     key2_row = sweep_rows[2]
     kernels = [
         dict(name="relax_sweep", route="cuda",
@@ -1386,7 +1667,8 @@ def main() -> int:
                    relax_sweep=sweep_rows, query_profile=q_prof,
                    minplus=mp_rows,
                    frontier=frontier, edge_relax=er_row, embed_bag=bag_rows,
-                   serve=serve, profiler_short_passes=short_passes,
+                   serve=serve, directed=directed, autotune=autotune,
+                   profiler_short_passes=short_passes,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")
     log("summary: " + json.dumps(summary))

@@ -1,7 +1,9 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
 The reference's state is `Graph(src, dst, valid, w, n)`, the six fields of
-`BatchUpdate` and `HighwayLabelling(landmarks, dist, hub, highway)`. Each
+`BatchUpdate` and `HighwayLabelling(landmarks, dist, hub, highway)`, and
+for the directed variant `DirectedGraph(src, dst, valid, w, n)` and
+`DirectedLabelling(fwd, bwd)` of two such labellings. Each
 `*_from_numpy` takes those fields (any array-likes; `np.asarray` pulls a
 JAX array to the host) and builds the port's tensors on `device`; each
 `*_to_numpy` returns the fields in the same order as numpy arrays. Dtypes
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.directed import DirectedGraph, DirectedLabelling
 from repro_torch.core.labelling import HighwayLabelling
 from repro_torch.graphs.coo import BatchUpdate, Graph
 
@@ -60,3 +63,27 @@ def labelling_to_numpy(lab: HighwayLabelling) -> tuple:
     """(landmarks, dist, hub, highway)."""
     return tuple(_np(x) for x in (lab.landmarks, lab.dist, lab.hub,
                                   lab.highway))
+
+
+def directed_graph_from_numpy(src, dst, valid, w, n: int, *,
+                              device: str | torch.device) -> DirectedGraph:
+    return DirectedGraph(_t(src, np.int32, device), _t(dst, np.int32, device),
+                         _t(valid, bool, device), _t(w, np.int32, device),
+                         int(n))
+
+
+def directed_graph_to_numpy(g: DirectedGraph) -> tuple:
+    """(src, dst, valid, w, n)."""
+    return graph_to_numpy(g)
+
+
+def directed_labelling_from_numpy(fwd, bwd, *, device: str | torch.device
+                                  ) -> DirectedLabelling:
+    """`fwd` and `bwd` are each (landmarks, dist, hub, highway)."""
+    return DirectedLabelling(labelling_from_numpy(*fwd, device=device),
+                             labelling_from_numpy(*bwd, device=device))
+
+
+def directed_labelling_to_numpy(lab: DirectedLabelling) -> tuple:
+    """((landmarks, dist, hub, highway) of fwd, the same of bwd)."""
+    return labelling_to_numpy(lab.fwd), labelling_to_numpy(lab.bwd)

@@ -24,6 +24,12 @@ batch search and repair of `core/batch.py` then relax, wave by wave, only
 the tile rows one block-hop ahead of the blocks that changed, through
 `gather_rows` and `relax_rows` below, and fall back to the full sweep
 when those rows outgrow the plan's budget.
+
+With `RelaxEngine(autotune=True)` the engine measures, once per snapshot
+shape, kernel A under each launch shape of the reference's grid against
+the `sorted` impl (`core/autotune.py`) and prepares its plans for the
+winner: a kernel tiling of the winner's block_v, block_e and shards, or
+a `SortedGraph` that `relax_sweep` runs as PyTorch ops.
 """
 from __future__ import annotations
 
@@ -32,15 +38,18 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import autotune as tune_mod
 from repro_torch.core.labelling import sat_add
 from repro_torch.device import resolve_device
 from repro_torch.graphs.coo import Graph
 from repro_torch.graphs.segment import masked_segment_min
 from repro_torch.kernels.edge_relax import ops as er_ops
-from repro_torch.kernels.edge_relax.ops import BlockedGraph, FrontierTiles
+from repro_torch.kernels.edge_relax.ops import (BlockedGraph, FrontierTiles,
+                                                SortedGraph)
 
 #: Waves run per kind ("construct", "search_basic", "search_improved",
-#: "repair_base", "repair", "bibfs") since the last `WAVES.clear()`. In
+#: "repair_base", "repair", "bibfs", and the directed variant's
+#: "directed_search" and "directed_bibfs") since the last `WAVES.clear()`. In
 #: the frontier mode `kind` still counts every wave, and `kind + ".masked"`
 #: counts those that relaxed only the frontier's rows.
 WAVES: collections.Counter = collections.Counter()
@@ -53,13 +62,19 @@ class RelaxPlan:
     """How to run sweeps on one graph snapshot: its prepared tiling, and
     the frontier mode's row tiling when the engine has that mode on.
 
-    `tiled` (bool [E2]) marks the slots both tilings hold: the live slots
-    of the snapshot it was prepared from. The engine serves the plan to a
-    snapshot only while every live slot lies in it.
+    `impl` is "kernel" (kernel A on `tiles`) or "sorted" (the PyTorch ops
+    of `ops.relax_sweep_sorted` on `sorted_tiles`, `tiles` None), as the
+    autotuner picked. Both give the same planes.
+
+    `tiled` (bool [E2]) marks the slots every tiling of the plan holds:
+    the live slots of the snapshot it was prepared from. The engine serves
+    the plan to a snapshot only while every live slot lies in it.
     """
-    tiles: BlockedGraph
+    tiles: BlockedGraph | None
     frontier: FrontierTiles | None = None
     tiled: torch.Tensor | None = None
+    sorted_tiles: SortedGraph | None = None
+    impl: str = "kernel"
 
 
 def relax_sweep(plan: RelaxPlan | None, g: Graph, keys: torch.Tensor,
@@ -69,7 +84,8 @@ def relax_sweep(plan: RelaxPlan | None, g: Graph, keys: torch.Tensor,
     """One relaxation wave of all planes `keys` [P, V] over the edges of g.
 
     plan=None runs the segment-min reference on the COO arrays; a plan
-    runs the tiled kernel wrapper. `edge_mask` ([E2] or [P, E2]) defaults
+    runs the tiled kernel wrapper, or the `sorted` impl when that is the
+    plan's `impl`. `edge_mask` ([E2] or [P, E2]) defaults
     to g.valid and is in original slot order; `hub` [P, V] / `clear_bit`
     realise key2/key4 path extension. The add is step·w(u,v), saturating
     at `inf`.
@@ -81,6 +97,10 @@ def relax_sweep(plan: RelaxPlan | None, g: Graph, keys: torch.Tensor,
             cand = torch.where(hub[:, g.dst.to(torch.int64)],
                                cand & ~clear_bit, cand)
         return masked_segment_min(cand, g.dst, g.n, mask, inf)
+    if plan.impl == "sorted":
+        return er_ops.relax_sweep_sorted(keys, plan.sorted_tiles, mask, step,
+                                         inf, g.w, clear_bit=clear_bit,
+                                         hub=hub)
     return er_ops.relax_sweep(keys, plan.tiles, mask, step, inf, g.w,
                               clear_bit=clear_bit, hub=hub)
 
@@ -161,6 +181,13 @@ class RelaxEngine:
               and repair relax only what the batch's footprint reaches.
               The answers are the same; off by default, as in the
               reference's serving loop.
+    autotune: per snapshot shape (n, slot count, shards), measure kernel A
+              under each launch shape of the candidate grid against the
+              `sorted` impl (`core/autotune.py`) and prepare plans for
+              the winner; a kernel winner's block_v and block_e become
+              the engine's. `tune_table` (a `TuneTable` or a JSON path)
+              keeps the winners, so a restart on the same table measures
+              nothing; `tune_count` counts measurement runs.
     device:   where plans live; None is the GPU (raises without one).
     """
 
@@ -172,6 +199,8 @@ class RelaxEngine:
     def __init__(self, block_v: int = 512, block_e: int | None = None, *,
                  shards: int = 1, frontier: bool = False,
                  frontier_threshold: float = 0.25, frontier_block: int = 64,
+                 autotune: bool = False,
+                 tune_table: "tune_mod.TuneTable | str | None" = None,
                  device: str | torch.device | None = None):
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
@@ -182,12 +211,28 @@ class RelaxEngine:
         self.frontier = frontier
         self.frontier_threshold = frontier_threshold
         self.frontier_block = frontier_block
+        self.autotune = autotune
+        if isinstance(tune_table, str):
+            tune_table = tune_mod.TuneTable(tune_table)
+        self.tune_table = (tune_table if tune_table is not None
+                           else (tune_mod.TuneTable() if autotune else None))
+        self._tuned_cfg: tune_mod.TuneConfig | None = None
         self._plan: RelaxPlan | None = None
         self._fingerprint: tuple | None = None
         self._plans: dict[tuple, RelaxPlan] = {}  # fingerprint-keyed LRU
         self.retile_count = 0
         self.stale_cache_retiles = 0  # fingerprint mismatches caught below
         self.plan_cache_hits = 0      # keyed-cache hits (no retile needed)
+        self.tune_count = 0           # tuner measurement runs (table misses)
+        #: The last measurement run's result (every candidate's times).
+        self.last_tune: tune_mod.TuneResult | None = None
+
+    @property
+    def plan_alignment(self) -> int:
+        """Vertex-count alignment unit for grow-in-place: block_v · shards,
+        read from the engine, whose block_v an adopted kernel winner sets,
+        so grown snapshots keep the tiles actually served."""
+        return self.block_v * self.shards
 
     @staticmethod
     def _fingerprint_terms(g: Graph) -> torch.Tensor:
@@ -262,6 +307,7 @@ class RelaxEngine:
         if g.device != self.device:
             raise ValueError(f"graph is on {g.device}, engine on "
                              f"{self.device}")
+        cfg = self._ensure_tuned(g)
         if self._plan is not None and not topology_changed \
                 and not verify_cache:
             return self._plan
@@ -272,8 +318,12 @@ class RelaxEngine:
             if not self._cache_is_stale(fp, uncovered.get(current, True)):
                 return self._plan
             self.stale_cache_retiles += 1
-        key = fp + (("frontier", self.frontier_block, self.frontier_threshold)
-                    if self.frontier else ())
+        # The key carries the tuned config, so that a plan prepared under
+        # one winner is never served under another.
+        key = fp + ((cfg.impl, cfg.block_v, cfg.block_e, cfg.tile_shards)
+                    if cfg else ())
+        if self.frontier:
+            key += ("frontier", self.frontier_block, self.frontier_threshold)
         plan = self._plans.pop(key, None)
         if plan is None or uncovered.get(key, True):
             # Host sync: pull the slot arrays once per topology change and
@@ -284,9 +334,16 @@ class RelaxEngine:
                       src, dst, keep, g.n, self.frontier_block,
                       threshold=self.frontier_threshold, device=self.device)
                   if self.frontier else None)
-            plan = RelaxPlan(er_ops.prepare_topology(
-                src, dst, keep, g.n, self.block_v, self.shards, self.block_e,
-                device=self.device), ft, g.valid.clone())
+            if cfg is not None and cfg.impl == "sorted":
+                plan = RelaxPlan(None, ft, g.valid.clone(),
+                                 sorted_tiles=er_ops.prepare_sorted(
+                                     src, dst, keep, g.n, device=self.device),
+                                 impl="sorted")
+            else:
+                shards = cfg.tile_shards if cfg else self.shards
+                plan = RelaxPlan(er_ops.prepare_topology(
+                    src, dst, keep, g.n, self.block_v, shards, self.block_e,
+                    device=self.device), ft, g.valid.clone())
             self.retile_count += 1
         else:
             self.plan_cache_hits += 1
@@ -295,3 +352,31 @@ class RelaxEngine:
             self._plans.pop(next(iter(self._plans)))
         self._plan, self._fingerprint = plan, fp
         return plan
+
+    def _ensure_tuned(self, g: Graph) -> "tune_mod.TuneConfig | None":
+        """Resolve (and adopt) the tuned config for g's shape.
+
+        The table is keyed (n, slot count, shards): edge churn at a fixed
+        shape reuses the winner with no measurement, growth changes the
+        key and measures again. Adopting a kernel winner sets block_v and
+        block_e, so `plan_alignment` follows the tiles actually served.
+        """
+        if not self.autotune:
+            return None
+        key = tune_mod.table_key(g.n, int(g.src.shape[0]), self.shards)
+        cfg = self.tune_table.get(key)
+        if cfg is None:
+            result = tune_mod.tune(g, shards=self.shards,
+                                   block_v=self.block_v)
+            self.tune_table.put(key, result)
+            self.tune_count += 1
+            self.last_tune = result
+            cfg = result.config
+        if cfg != self._tuned_cfg:
+            self._tuned_cfg = cfg
+            if cfg.impl == "kernel":
+                self.block_v = cfg.block_v
+                self.block_e = cfg.block_e
+            if cfg.frontier_threshold is not None:
+                self.frontier_threshold = cfg.frontier_threshold
+        return cfg

@@ -67,7 +67,9 @@ def query_upper_bound(labelling: HighwayLabelling, s: torch.Tensor,
 
 def bounded_bibfs(g: Graph, landmarks: torch.Tensor, s: torch.Tensor,
                   t: torch.Tensor, bound: torch.Tensor, max_steps: int = 64,
-                  plan: RelaxPlan | None = None) -> torch.Tensor:
+                  plan: RelaxPlan | None = None, *,
+                  rev: Graph | None = None, plan_rev: RelaxPlan | None = None,
+                  kind: str = "bibfs") -> torch.Tensor:
     """Distance-bounded bidirectional search on G[V\\R], batched over
     queries.
 
@@ -78,7 +80,13 @@ def bounded_bibfs(g: Graph, landmarks: torch.Tensor, s: torch.Tensor,
     chosen for the whole batch, from the changed-entry counts summed over
     all queries (`fs <= ft`), as the reference does: with `max_steps`
     binding, another order gives other answers.
+
+    The s side expands over `g` with `plan`, the t side over `rev` with
+    `plan_rev` (default: the same); the directed variant passes the
+    reversed arcs there. Waves count under `WAVES[kind]`.
     """
+    if rev is None:
+        rev, plan_rev = g, plan
     n = g.n
     b = s.shape[0]
     dev = g.device
@@ -98,8 +106,9 @@ def bounded_bibfs(g: Graph, landmarks: torch.Tensor, s: torch.Tensor,
     wmin = (torch.where(g.valid, g.w, INF_D).amin() if g.w.numel()
             else torch.tensor(INF_D, device=dev)).clamp(1, 1 << 20)
 
-    def expand(dx: torch.Tensor) -> torch.Tensor:
-        cand = relax_sweep(plan, g, dx, 1, INF_D)
+    def expand(dx: torch.Tensor, og: Graph,
+               og_plan: RelaxPlan | None) -> torch.Tensor:
+        cand = relax_sweep(og_plan, og, dx, 1, INF_D)
         cand = torch.where(blocked[None, :], INF_D, cand)
         return torch.minimum(dx, cand)
 
@@ -115,12 +124,12 @@ def bounded_bibfs(g: Graph, landmarks: torch.Tensor, s: torch.Tensor,
         if not go:
             break
         if expand_s:
-            nd = expand(ds)
+            nd = expand(ds, g, plan)
             ds, fs, ls = nd, (nd != ds).sum(), ls + 1
         else:
-            nd = expand(dt)
+            nd = expand(dt, rev, plan_rev)
             dt, ft, lt = nd, (nd != dt).sum(), lt + 1
-        WAVES["bibfs"] += 1
+        WAVES[kind] += 1
         best = torch.minimum(best, best_meet(ds, dt))
     return best
 

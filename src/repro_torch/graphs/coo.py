@@ -273,21 +273,27 @@ def apply_batch(g: Graph, b: BatchUpdate) -> Graph:
                  put(valid, True, True), put(w, b.w, b.w), g.n)
 
 
-def resolve_seed_weights(g_old: Graph, b: BatchUpdate) -> BatchUpdate:
+def resolve_seed_weights(g_old: Graph, b: BatchUpdate, *,
+                         key=None) -> BatchUpdate:
     """Replace `b.w` with the *seed* weight of each row against G (pre-update).
 
     Insert: the new edge's weight; delete: the removed edge's weight in G;
     re-weight: min(old, new). The old weight is the max over the live
     slots that match the row, and 1 when none does (unmatched rows are
     no-ops in `apply_batch` anyway). Padding rows get 1.
+
+    `key(a, b, keep=None)` is the int64 slot/row key a match compares:
+    the canonical undirected pair by default; the directed variant passes
+    its exact-arc key.
     """
+    key = _canon_key if key is None else key
     u_slots = b.src.shape[0]
     if u_slots == 0:
         return b
     need_old = (b.is_del | b.is_rew) & b.valid
-    row_key = _canon_key(b.src, b.dst, need_old)
+    row_key = key(b.src, b.dst, need_old)
     sorted_k, _ = torch.sort(row_key)
-    g_key = _canon_key(g_old.src, g_old.dst)
+    g_key = key(g_old.src, g_old.dst)
     pos = torch.searchsorted(sorted_k, g_key).clamp_max(u_slots - 1)
     m = (sorted_k[pos] == g_key) & g_old.valid
     # Max live weight per distinct key, at the key's first sorted position.

@@ -20,6 +20,12 @@ treat edges deleted after prepare time as present.
 (`core/batch.py`): the kept slots grouped into rows of `fblock`-vertex
 destination blocks, with the block adjacency that carries a changed-block
 frontier one hop per wave.
+
+`SortedGraph` is the `sorted` impl's edge list: the kept slots sorted by
+destination vertex. `relax_sweep_sorted` runs the same sweep over it in
+plain PyTorch ops (the reference's jnp `segment_min` twin); the
+autotuner (`core/autotune.py`) may pick it on measured speed. It is not
+kernel A's plain twin, and nothing falls back to it.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.labelling import sat_add
 from repro_torch.kernels.edge_relax import kernel
 
 
@@ -122,6 +129,58 @@ def edge_relax(keys: torch.Tensor, bg: BlockedGraph, step: int
     none. The device of `keys` picks the kernel or its plain version."""
     return kernel.edge_relax(keys, bg.src_t, bg.dstloc_t, bg.valid_t,
                              bg.rowblk_t, step, bg.n, bg.block_v, bg.nb)
+
+
+@dataclasses.dataclass(frozen=True)
+class SortedGraph:
+    """The kept edge slots sorted by destination vertex (the `sorted` impl).
+
+    `perm_s` maps each sorted position to its original slot, so the
+    per-sweep mask and weights are read through it, as `BlockedGraph`
+    reads them through `perm_t`. The indices are int64, the dtype the
+    gathers and the scatter take, so a sweep converts nothing.
+    """
+    src_s: torch.Tensor   # int64 [M] source vertex, dst-sorted order
+    dst_s: torch.Tensor   # int64 [M] destination vertex, ascending
+    perm_s: torch.Tensor  # int64 [M] original edge-slot index
+    n: int
+
+
+def prepare_sorted(src, dst, keep, n: int, *,
+                   device: str | torch.device) -> SortedGraph:
+    """Sort the `keep` slots by destination on the host (stable, so equal
+    destinations keep slot order) and move them to `device`: once per
+    topology, the `sorted` twin of `prepare_topology`."""
+    src = np.asarray(src)
+    dst = np.asarray(dst)
+    idx = np.flatnonzero(np.asarray(keep, bool))
+    perm = idx[np.argsort(dst[idx], kind="stable")]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+    return SortedGraph(dev(src[perm]), dev(dst[perm]), dev(perm), n)
+
+
+def relax_sweep_sorted(keys: torch.Tensor, sg: SortedGraph,
+                       edge_mask: torch.Tensor, step: int, inf: int,
+                       w: torch.Tensor, clear_bit: int = 0,
+                       hub: torch.Tensor | None = None) -> torch.Tensor:
+    """The `sorted` impl of `relax_sweep`: the same [P, V] → [P, V] wave
+    over the destination-sorted kept slots, in PyTorch ops.
+
+    Gather the sources, add step·w saturating at `inf`, clear the hub bit
+    at hub destinations, mask, and take the min by destination; a
+    destination no live slot reaches is `inf`. `edge_mask` ([E2] or
+    [P, E2]) and `w` ([E2]) are in original slot order.
+    """
+    p = keys.shape[0]
+    mask = edge_mask[..., sg.perm_s]
+    cand = sat_add(keys[:, sg.src_s], step * w[sg.perm_s], inf)   # [P, M]
+    if hub is not None:
+        cand = torch.where(hub[:, sg.dst_s], cand & ~clear_bit, cand)
+    cand = torch.where(mask, cand, inf)
+    out = torch.full((p, sg.n), inf, dtype=torch.int32, device=keys.device)
+    return out.scatter_reduce_(1, sg.dst_s.expand(p, -1), cand, "amin")
 
 
 @dataclasses.dataclass(frozen=True)

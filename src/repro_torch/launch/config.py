@@ -2,9 +2,8 @@
 
 The port of `repro.launch.config`, field for field, so that a `ServeSpec`
 JSON written by either package loads in the other. The port's
-`ServeLoop` raises for the settings it does not support yet (`mesh`,
-`autotune`, `tune_table`), and maps `backend` onto its own kernels
-(`launch/serve.py`).
+`ServeLoop` raises for the setting it does not support yet (`mesh`), and
+maps `backend` onto its own kernels (`launch/serve.py`).
 
 The serve tier's settings are five composable specs —
 

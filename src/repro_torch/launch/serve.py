@@ -27,8 +27,11 @@ kernel on the GPU and its plain PyTorch version on the CPU, with one
 `RelaxEngine` whose plan cache keeps both live snapshots' tilings;
 ``--backend jnp`` is the COO path (`plan=None`), on the CPU only. The
 Eq.-3 bound runs the min-plus kernel on the GPU and its plain version on
-the CPU, whatever ``--use-minplus-kernel`` says. ``--mesh``,
-``--autotune`` and ``--tune-table`` are not ported yet and raise.
+the CPU, whatever ``--use-minplus-kernel`` says. ``--autotune`` measures
+kernel A's launch shapes against the `sorted` impl once per snapshot shape
+and serves the winner (`core/autotune.py`); ``--tune-table PATH`` keeps
+the winners on disk (and implies ``--autotune``), so a restart measures
+nothing. ``--mesh`` is not ported yet and raises.
 
 Checkpointing: ``--ckpt-dir`` persists the full serve state each tick
 (graph slots, labelling, version, the host edge list) in the reference's
@@ -152,8 +155,8 @@ class ServeConfig:
     use_minplus_kernel: bool = False  # kernel on the GPU regardless
     mesh: str = "none"           # only "none" is ported
     shards: int = 1
-    autotune: bool = False       # not ported
-    tune_table: str | None = None  # not ported
+    autotune: bool = False       # tune impl + tile shape per snapshot shape
+    tune_table: str | None = None  # on-disk tuning table (core/autotune.py)
     fused: bool = False          # fused pipelined chunks (snapshot.py)
     # frontier-proportional sweeps (DESIGN.md §10)
     frontier: bool = False
@@ -263,10 +266,6 @@ class ServeLoop:
             raise NotImplementedError(
                 f"mesh={cfg.mesh!r}: mesh sharding is not ported yet "
                 "(ROADMAP § 1, item 9)")
-        if cfg.autotune or cfg.tune_table is not None:
-            raise NotImplementedError(
-                "autotune / tune_table: the autotuner is not ported yet "
-                "(ROADMAP § 1, item 5)")
         self.device = resolve_device(device)
         if cfg.graph == "road":
             # The grid realises rows·cols >= n vertices; queries, update
@@ -292,6 +291,7 @@ class ServeLoop:
                 block_v=cfg.block_v, block_e=cfg.block_e,
                 shards=cfg.tile_shards, frontier=cfg.frontier,
                 frontier_threshold=cfg.frontier_threshold,
+                autotune=cfg.autotune, tune_table=cfg.tune_table,
                 device=self.device)
             self.backend = "cuda" if self.device.type == "cuda" else "plain"
         self.store: SnapshotStore | None = None
@@ -302,11 +302,18 @@ class ServeLoop:
     @property
     def growth_policy(self) -> GrowthPolicy:
         """Grow-in-place policy aligned to the tiling unit block_v ·
-        tile_shards, on every backend, so a growth stream reaches the same
-        sizes whichever backend serves it."""
+        shards, on every backend, so a growth stream reaches the same
+        sizes whichever backend serves it. The unit is read from the
+        engine at each use: an adopted autotuned kernel winner changes its
+        block_v, and grown vertex counts must follow the tiles actually
+        served. The COO path has no engine and keeps the config's."""
+        if self.engine is None:
+            return GrowthPolicy(factor=self.cfg.growth_factor,
+                                block_v=self.cfg.block_v,
+                                shards=self.cfg.tile_shards)
         return GrowthPolicy(factor=self.cfg.growth_factor,
-                            block_v=self.cfg.block_v,
-                            shards=self.cfg.tile_shards)
+                            block_v=self.engine.block_v,
+                            shards=self.engine.shards)
 
     def _log(self, msg: str) -> None:
         if not self.cfg.quiet:
@@ -629,7 +636,8 @@ class ServeLoop:
             f"retiles={engine.retile_count}/{cfg.batches + 1} prepares, "
             f"{engine.plan_cache_hits} plan-cache hits, "
             f"{engine.stale_cache_retiles} stale-cache catches, "
-            f"tile-shards={engine.shards}, ")
+            f"tile-shards={engine.shards}, "
+            + (f"tunes={engine.tune_count}, " if engine.autotune else ""))
         self._log(
             f"latency: p50 {pct['p50'] * 1e3:.1f}ms "
             f"p95 {pct['p95'] * 1e3:.1f}ms p99 {pct['p99'] * 1e3:.1f}ms | "
@@ -638,11 +646,12 @@ class ServeLoop:
             f"scenario={cfg.scenario}]")
         if growth:
             final_g = self.store.committed.graph
+            pol = self.growth_policy
             self._log(f"grew {len(growth)}x: capacity "
                       f"{growth[0].old_capacity}->{final_g.capacity}, "
                       f"n {growth[0].old_n}->{final_g.n} "
                       f"[factor={cfg.growth_factor:g}, v-align="
-                      f"{cfg.block_v * cfg.tile_shards}]")
+                      f"{pol.block_v * pol.shards}]")
         self._log(f"serve loop done [backend={self.backend}, "
                   f"{engine_desc}{self.device}, mode={mode}]")
         return self.report
@@ -660,7 +669,8 @@ def main() -> None:
                          "'cpu' runs the kernels' plain versions)")
     args = ap.parse_args()
     spec = cfgmod.spec_from_cli(args, ap)
-    cfg = spec.to_serve_config()
+    autotune = spec.engine.autotune or spec.engine.tune_table is not None
+    cfg = spec.to_serve_config(autotune=autotune)
     try:
         # Config validation happens at construction; errors inside run()
         # propagate with their tracebacks.

@@ -72,6 +72,23 @@ def test_relax_sweep_kernel_edge_cases(dev, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", cases.names())
+def test_sorted_impl_equals_kernel(dev, name):
+    """The autotuner's `sorted` impl on the card against kernel A and its
+    plain version, over every sweep of the same edge cases."""
+    for c in cases.make(name):
+        args = cases.sweep_args(c, dev)
+        sg = rops.prepare_sorted(c.src, c.dst, c.keep, c.n, device=dev)
+        got = rops.relax_sweep_sorted(args[0], sg, args[7], c.step, c.inf,
+                                      args[8], clear_bit=c.clear,
+                                      hub=args[1])
+        want = rk.relax_sweep(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), c.label
+        assert torch.equal(got, rk.relax_sweep_plain(*args)), c.label
+
+
+@pytest.mark.cuda
 def test_relax_sweep_kernel_block_v_limit(dev):
     """The widest block_v whose one-plane tile fits runs (three planes,
     one per CTA); one more raises the wrapper's ValueError, limit named."""

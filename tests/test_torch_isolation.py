@@ -19,7 +19,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch.api, repro_torch.convert, "
             "repro_torch.launch.serve, repro_torch.core.snapshot, "
-            "repro_torch.core.growth, repro_torch.checkpoint.manager; "
+            "repro_torch.core.growth, repro_torch.checkpoint.manager, "
+            "repro_torch.core.autotune, repro_torch.core.directed; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; print(bad)")
@@ -61,3 +62,30 @@ def test_checkpoint_restore_without_device_raises_without_cuda(tmp_path):
     tckpt.save(str(tmp_path), 0, {"x": np.arange(3, dtype=np.int64)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tckpt.restore(str(tmp_path), {"x": torch.zeros(3, dtype=torch.int64)})
+
+
+def test_from_arcs_without_device_raises_without_cuda():
+    from repro_torch.core.directed import from_arcs
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the GPU")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_arcs(3, np.array([[0, 1], [1, 2]]), 4)
+
+
+def test_autotune_cli_without_device_raises_without_cuda(tmp_path):
+    """`python -m repro_torch.core.autotune` tunes on the GPU unless given
+    `--device`; with `--device cpu` it writes its table."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the GPU")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    table = str(tmp_path / "t.json")
+    cmd = [sys.executable, "-m", "repro_torch.core.autotune", "--n", "60",
+           "--table", table]
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert not os.path.exists(table)
+    from repro_torch.core import autotune
+    autotune.main(cmd[3:] + ["--device", "cpu"])
+    assert autotune.TuneTable(table).get("n=60,cap=1220,s=2") == \
+        autotune.TuneConfig("sorted", 256, None, 2)

@@ -142,3 +142,53 @@ def test_flapping_soak_engine_equals_coo(seed):
                           tapi.query(g, lab, s, t, engine=eng))
         for a, b in zip(got["tiled"], got["coo"]):
             assert torch.equal(a, b), f"tick {k}: {ups}"
+
+
+# --- the same guard for an autotuned engine's sorted plans --------------------
+
+def test_reinsert_into_stale_slot_pair_sorted_plan():
+    """The 6-vertex case through an autotuning engine: on the CPU it picks
+    the `sorted` impl, whose plan also holds only the slots live at
+    prepare time, and the cover check guards it the same way."""
+    engine = RelaxEngine(block_v=4, autotune=True, device="cpu")
+    got = _run_path(engine)
+    want = _run_path(None)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[2][1].item() == 1
+    assert engine._plan.impl == "sorted" and engine.tune_count == 1
+    assert (engine.retile_count, engine.plan_cache_hits) == (3, 1)
+    # A vouched prepare after the re-insert retiles the sorted plan too.
+    engine = RelaxEngine(block_v=4, autotune=True, device="cpu")
+    g, lab = tapi.build(6, PATH, landmarks=[5], capacity=6, device="cpu",
+                        engine=engine)
+    g, lab, _ = tapi.update(g, lab, TICKS[0], engine=engine)
+    g2 = tcoo.apply_batch(g, tcoo.make_batch(TICKS[1], device="cpu"))
+    plan = engine.prepare(g2, topology_changed=False)
+    assert engine.stale_cache_retiles == 1 and plan.impl == "sorted"
+    assert bool(plan.tiled[g2.valid].all())
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_flapping_soak_sorted_plan_equals_coo(seed):
+    """The flapping soak, shortened, through an autotuning engine."""
+    n, ticks = 40, 12
+    rng = np.random.default_rng(100 + seed)
+    edges = jgen.random_connected(n, extra_edges=20, seed=seed)
+    s, t = rng.integers(0, n, 48), rng.integers(0, n, 48)
+    engine = RelaxEngine(block_v=8, autotune=True, device="cpu")
+    state = {name: tapi.build(n, edges, num_landmarks=4, slack=8,
+                              device="cpu", engine=eng)
+             for name, eng in (("sorted", engine), ("coo", None))}
+    for k, ups in enumerate(_flapping_ticks(edges, n, ticks, rng)):
+        got = {}
+        for name, eng in (("sorted", engine), ("coo", None)):
+            g, lab = state[name]
+            if ups:
+                g, lab, _ = tapi.update(g, lab, ups, pad_to=4, engine=eng)
+            state[name] = (g, lab)
+            got[name] = (g.valid, lab.dist, lab.hub,
+                         tapi.query(g, lab, s, t, engine=eng))
+        for a, b in zip(got["sorted"], got["coo"]):
+            assert torch.equal(a, b), f"tick {k}: {ups}"
+    assert engine._plan.impl == "sorted" and engine.tune_count == 1

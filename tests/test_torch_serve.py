@@ -256,10 +256,9 @@ def test_verify_counts_no_mismatch():
 def test_unported_settings_raise():
     with pytest.raises(NotImplementedError, match="item 9"):
         ServeLoop(ServeConfig(mesh="host"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ServeLoop(ServeConfig(autotune=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ServeLoop(ServeConfig(tune_table="t.json"), device="cpu")
+    # The autotuner is ported: both settings reach the engine.
+    loop = ServeLoop(ServeConfig(autotune=True), device="cpu")
+    assert loop.engine.autotune and loop.engine.tune_count == 0
     with pytest.raises(ValueError, match="CPU only"):
         ServeLoop(ServeConfig(backend="jnp"), device="meta")
     with pytest.raises(ValueError, match="tiled engine"):

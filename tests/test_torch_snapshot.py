@@ -153,14 +153,19 @@ def test_fused_update_matches_monolithic(inst, improved, chunk_sweeps):
         chunk_sweeps=chunk_sweeps, fused=True))
 
 
-@pytest.mark.parametrize("impl", ["kernel"])
+@pytest.mark.parametrize("impl", ["kernel", "sorted"])
 def test_fused_update_pallas_plans(inst, impl):
-    """Fused chunks compose with the kernel tiling (the reference's
-    `sorted` impl comes with the autotuner)."""
+    """Fused chunks compose with both plan impls: the kernel tiling and
+    the autotuned destination-sorted one."""
     gj, labj, bj, want = inst
     snap, bt = _port(gj, labj, bj)
     g_next = tcoo.apply_batch(snap.graph, bt)
-    plan = RelaxEngine(block_v=32, shards=2, device="cpu").prepare(g_next)
+    if impl == "kernel":
+        engine = RelaxEngine(block_v=32, shards=2, device="cpu")
+    else:
+        engine = RelaxEngine(block_v=32, autotune=True, device="cpu")
+    plan = engine.prepare(g_next)
+    assert plan.impl == impl
     nxt, aff = tsnap.run_pipelined_update(tsnap.pipelined_update(
         snap, bt, plan=plan, g_new=g_next, fused=True, chunk_sweeps=2))
     _assert_update(nxt, aff, want[True])
