@@ -99,7 +99,24 @@
    the build. Its final snapshot must equal run A's; kernel A must have run
    if the winner is a kernel config; a second loop on the same table must
    tune nothing and commit the same.
-9. Prints a `summary:` line with every number above as JSON, the
+9. The replica tier at full width (`repro_torch.launch.replica`): run
+   A's configuration with `TopologySpec(readers=2, restart=True)`, an
+   updater resumed from run A's version 0 (saved in phase 6, so that no
+   process regenerates the graph), two readers and a router, each its own
+   process on the card, their output in `build/chip_smoke_replica/logs/`.
+   An open-loop stream of single-query requests at 2000/s from 32 client
+   connections runs through the router until the updater has published
+   its last version and the restarted reader has acked; reader 0 is
+   killed once version 1 is published. The updater must exit 0, reader 0
+   must have been restarted, staleness stay ≤ 1, answered + rejected
+   equal offered, every published step equal run A's step byte for byte,
+   up to 32 served answers per version equal the COO path and scipy BFS
+   at that version, and each role's exit line show kernels A and B in
+   every reader stopped cleanly and kernel A in the updater. Latency
+   (all, and while a reader maps a version), rates, router stats, map
+   seconds per reader and version, barrier waits, the restarted reader's
+   spawn to first ack, and each process's peak device memory.
+10. Prints a `summary:` line with every number above as JSON, the
    `{"kernels": [...]}` line (kernel A's and B's launches are run A's),
    the card line, and last `{"ok": true, "device": {...}}`.
 
@@ -110,6 +127,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -924,7 +942,8 @@ def run_serve(torch, np, dev, g0, lab0, batch, full, trickle, fr) -> dict:
     from repro_torch.core import engine as teng
     from repro_torch.core import snapshot as tsnap
     from repro_torch.data.scenarios import get_scenario
-    from repro_torch.launch.serve import ServeConfig, ServeLoop
+    from repro_torch.graphs import generators as gen
+    from repro_torch.launch.serve import EdgeSet, ServeConfig, ServeLoop
 
     t_phase = time.perf_counter()
     out: dict = {}
@@ -1036,6 +1055,13 @@ def run_serve(torch, np, dev, g0, lab0, batch, full, trickle, fr) -> dict:
     # Checkpoints: restore run A's last step, then resume a 2-tick run.
     step = SERVE_DIR / "a" / f"step_{SERVE_BATCHES}"
     nbytes = sum(f.stat().st_size for f in step.iterdir())
+    # Run A's version 0 beside its ticks' steps, with the leaves its loop
+    # checkpoints carry: phase 9's updater resumes from it.
+    t0 = time.perf_counter()
+    tsnap.save_snapshot(str(SERVE_DIR / "a"), rep_a.history[0], extra={
+        "edge_list": EdgeSet(gen.barabasi_albert(N, BA_M, seed=0)).edges(),
+        "base_n": np.int64(N)})
+    out["seed_step_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     back = tsnap.restore_snapshot(str(SERVE_DIR / "a"), device=dev)
@@ -1057,7 +1083,8 @@ def run_serve(torch, np, dev, g0, lab0, batch, full, trickle, fr) -> dict:
     same_snapshot(torch, rep.final, rep_a.final, "resumed vs pipeline")
     final_a = rep_a.final
     del rep, rep_a
-    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    # Run A's steps stay for phase 9, which removes them.
+    shutil.rmtree(SERVE_DIR / "r", ignore_errors=True)
 
     # Growth: pure inserts from a capacity 64 pairs above the edge count.
     rep = serve("growth", pipeline=True, scenario="growth", batches=2,
@@ -1314,6 +1341,287 @@ def run_autotune(torch, dev, base: dict, want) -> dict:
     log(f"phase 8: run T == run A's final snapshot; run T' "
         f"({out['run_t2_s']:.1f} s) tuned nothing and == run A; phase "
         f"{out['wall_s']:.1f} s")
+    return out
+
+
+# --- phase 9: the replica tier at full width ---------------------------------------
+
+REPLICA_DIR = ROOT / "build" / "chip_smoke_replica"   # publish dir, removed
+REPLICA_READERS = 2
+REPLICA_WORKERS = 32      # client connections, one query per request
+REPLICA_MAX_S = 90.0      # the stream's arrival schedule; `until` ends it
+REPLICA_RESTART_S = 60.0  # how long the stream waits for the restarted reader
+REPLICA_AFTER_S = 5.0     # the stream runs on this long after its first ack
+REPLICA_CHECK = 32        # served answers per version held to the COO path
+
+
+def dump_role_logs(log_dir: Path, lines: int = 40) -> None:
+    """The last lines of each role's log, on stderr."""
+    for path in sorted(log_dir.glob("*.log")):
+        print(f"--- {path.name} (last {lines} lines)", file=sys.stderr)
+        print("\n".join(path.read_text(errors="replace")
+                        .splitlines()[-lines:]), file=sys.stderr)
+
+
+def role_lines(log_dir: Path, prefix: str) -> list:
+    """The JSON records after `prefix` in every role's log."""
+    out = []
+    for path in sorted(log_dir.glob("*.log")):
+        for line in path.read_text(errors="replace").splitlines():
+            if line.startswith(prefix):
+                out.append(json.loads(line[len(prefix):]))
+    return out
+
+
+def card_memory_mib() -> int:
+    """The card's used memory in MiB, all processes and contexts together
+    (`nvidia-smi` in a container does not list them one by one)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=30, check=True)
+    return int(out.stdout.split()[0])
+
+
+def pct_ms(xs) -> dict:
+    import numpy as np
+    if not len(xs):
+        return {}
+    return {p: float(np.percentile(xs, q)) * 1e3
+            for p, q in (("p50", 50), ("p95", 95), ("p99", 99))}
+
+
+def run_replica(torch, np, dev, base: dict) -> dict:
+    """Phase 9: the replica tier (`launch/replica.py`) on the card at run
+    A's configuration: an updater resumed from run A's version 0, two
+    readers and a router, each its own process on the GPU, and an
+    open-loop stream of single-query requests at 2000/s through the
+    router until the updater has published its last version. Reader 0 is
+    killed once version 1 is published and the topology restarts it. The
+    published steps must be run A's byte for byte; served answers equal
+    the COO path and scipy BFS at their version; staleness ≤ 1; every
+    offered query answered or rejected; kernels A and B launched in each
+    reader that was stopped cleanly and kernel A in the updater."""
+    import filecmp
+    import shutil
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core import snapshot as tsnap
+    from repro_torch.launch import replica
+    from repro_torch.launch.config import ServeSpec, TopologySpec
+    from repro_torch.launch.serve import ServeConfig
+
+    t_phase = time.perf_counter()
+    pub = str(REPLICA_DIR)
+    logs = REPLICA_DIR / "logs"
+    run_a = SERVE_DIR / "a"
+    shutil.rmtree(REPLICA_DIR, ignore_errors=True)
+    # The updater resumes from run A's version 0 instead of regenerating
+    # BA(2^20, 4) (pure Python, 19-30 s) and building the labelling.
+    shutil.copytree(run_a / "step_0", REPLICA_DIR / "step_0")
+    spec = ServeSpec.from_serve_config(
+        ServeConfig(**{**base, "pipeline": True, "resume": True,
+                       "quiet": False}),
+        topology=TopologySpec(readers=REPLICA_READERS, restart=True))
+    # device=None: every role resolves the GPU itself.
+    topo = replica.ReplicaTopology(spec, pub, log_dir=str(logs))
+    out: dict = {}
+    kill: dict = {}
+    card_mib: list = []
+    last_smi = [0.0]
+
+    def restarted_acked() -> bool:
+        rec = replica.read_acks(pub).get(0)
+        return ("pid" in kill and rec is not None
+                and rec["pid"] == topo.readers[0].pid != kill["pid"]
+                and rec["version"] == ckpt.current_step(pub))
+
+    def on_tick() -> None:
+        now = time.monotonic()
+        if "pid" not in kill and (ckpt.current_step(pub) or 0) >= 1:
+            kill.update(pid=topo.readers[0].pid, t=now,
+                        head=ckpt.current_step(pub))
+            topo.kill_reader(0)
+        if now - last_smi[0] > 1.0:
+            last_smi[0] = now
+            card_mib.append(card_memory_mib())
+        if "acked" not in kill and restarted_acked():
+            kill["acked"] = now
+
+    def until() -> bool:
+        if topo.updater_running() or "pid" not in kill:
+            return False
+        now = time.monotonic()
+        if "acked" in kill:
+            return now - kill["acked"] >= REPLICA_AFTER_S
+        return now - kill["t"] > REPLICA_RESTART_S
+
+    try:
+        t0 = time.perf_counter()
+        topo.start()
+        out["start_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report = replica.stream_queries(
+            spec, topo, int(SERVE_QPS * REPLICA_MAX_S), SERVE_QPS,
+            workers=REPLICA_WORKERS, on_tick=on_tick, until=until)
+        out["stream_s"] = time.perf_counter() - t0
+        out["restarted_acked"] = restarted_acked()
+    finally:
+        topo.stop()
+    updater_rc = topo.updater.returncode
+
+    # What the roles wrote down.
+    exits = role_lines(logs, "replica exit: ")
+    maps = role_lines(logs, "replica map: ")
+    publishes = role_lines(logs, "replica publish: ")
+    spawned0 = topo.reader_spawned[0]
+    first = [m for m in maps if m["pid"] == topo.readers[0].pid]
+    out.update(
+        updater_rc=updater_rc, reader_restarts=report.reader_restarts,
+        killed=dict(pid=kill.get("pid"), head=kill.get("head")),
+        offered=report.offered,
+        answered=len(report.answers), rejected=report.rejected,
+        offered_qps=report.offered / out["stream_s"],
+        answered_qps=len(report.answers) / out["stream_s"],
+        latency_ms=pct_ms([a.latency_s for a in report.answers]),
+        max_staleness=report.max_staleness(),
+        router=report.router_stats,
+        barrier_s={p["version"]: p["barrier_s"] for p in publishes},
+        barrier_timeouts=sum(not p["barrier_ok"] for p in publishes),
+        maps=[{k: m[k] for k in ("reader", "pid", "version", "restore_s",
+                                 "prepare_s", "warm_s")} for m in maps],
+        restart_to_first_ack_s=(first[0]["acked"] - spawned0) if first
+        else None,
+        exits=exits,
+        peak_device_gb={f"{e['role']}{e.get('reader', '')}:{e['pid']}":
+                        e["peak_device_bytes"] / 1e9 for e in exits},
+        card_mib_peak=max(card_mib, default=None), card_mib_samples=card_mib)
+    # Latency of the queries that arrived while some reader was mapping a
+    # version (restore, prepare, warm), against the rest.
+    windows = [(m["start"], m["acked"]) for m in maps]
+    during = [a.latency_s for a in report.answers
+              if any(lo <= a.arrival <= hi for lo, hi in windows)]
+    calm = [a.latency_s for a in report.answers
+            if not any(lo <= a.arrival <= hi for lo, hi in windows)]
+    out["latency_during_map_ms"] = dict(pct_ms(during), n=len(during))
+    out["latency_outside_map_ms"] = dict(pct_ms(calm), n=len(calm))
+    # A timeline by the second of completion, from the stream's first
+    # arrival: answers, their p50 latency, and the events in that second.
+    t_first = min((a.arrival for a in report.answers), default=0.0)
+    events = [(kill.get("t"), "reader 0 killed"),
+              (kill.get("acked"), "reader 0 back")] + [
+        (p["t"], f"v{p['version']} published") for p in publishes]
+    timeline: dict = {}
+    for a in report.answers:
+        sec = int(a.arrival + a.latency_s - t_first)
+        timeline.setdefault(sec, []).append(a.latency_s)
+    out["timeline"] = [
+        dict(second=sec, answered=len(xs),
+             p50_ms=float(np.percentile(xs, 50)) * 1e3,
+             events=[name for t, name in events if t is not None
+                     and sec <= t - t_first < sec + 1])
+        for sec, xs in sorted(timeline.items())]
+    # Each reader's routed batches: size, and the seconds from receipt to
+    # the answer sent, while some reader maps and otherwise.
+    out["reader_batches"] = {}
+    for rec in role_lines(logs, "replica batches: "):
+        rows = rec["batches"]
+        busy, free = [], []
+        for b in rows:
+            (busy if any(lo <= b[0] <= hi for lo, hi in windows)
+             else free).append(b)
+        out["reader_batches"][f"{rec['reader']}:{rec['pid']}"] = dict(
+            batches=len(rows),
+            mean_size=sum(b[1] for b in rows) / max(1, len(rows)),
+            service_ms=pct_ms([b[2] for b in rows]),
+            service_during_map_ms=dict(pct_ms([b[2] for b in busy]),
+                                       n=len(busy)),
+            service_outside_map_ms=dict(pct_ms([b[2] for b in free]),
+                                        n=len(free)))
+    log(f"phase 9 reader batches: {out['reader_batches']}")
+    lat = out["latency_ms"]
+    log(f"phase 9: start {out['start_s']:.1f} s, stream {out['stream_s']:.1f}"
+        f" s; offered {report.offered} ({out['offered_qps']:.1f}/s), "
+        f"answered {len(report.answers)} ({out['answered_qps']:.1f}/s), "
+        f"rejected {report.rejected}; latency p50 {lat.get('p50', 0):.1f} ms"
+        f" p95 {lat.get('p95', 0):.1f} ms p99 {lat.get('p99', 0):.1f} ms; "
+        f"during a map {out['latency_during_map_ms']}, outside "
+        f"{out['latency_outside_map_ms']}")
+    log("phase 9 timeline (second: answered, p50 ms, events): " + "; ".join(
+        f"{r['second']}: {r['answered']}, {r['p50_ms']:.0f}"
+        + (f" {r['events']}" if r["events"] else "")
+        for r in out["timeline"]))
+    log(f"phase 9 router: per reader {report.router_stats.get('per_reader')}"
+        f", requeued {report.router_stats.get('requeued')}, reader errors "
+        f"{report.router_stats.get('reader_errors')}, staleness "
+        f"{report.router_stats.get('staleness')}, max staleness "
+        f"{out['max_staleness']}")
+    for m in out["maps"]:
+        log(f"phase 9 map: reader {m['reader']} (pid {m['pid']}) v"
+            f"{m['version']}: restore {m['restore_s']:.3f} s, prepare "
+            f"{m['prepare_s']:.3f} s, warm {m['warm_s']:.3f} s")
+    log(f"phase 9: reader 0 killed at v{kill.get('head')}, "
+        f"{report.reader_restarts} restarts, the restarted reader's spawn "
+        f"to first ack "
+        f"{out['restart_to_first_ack_s']} s; barrier waits "
+        f"{out['barrier_s']} s ({out['barrier_timeouts']} timeouts); "
+        f"updater rc {updater_rc}")
+    log(f"phase 9 peak device memory: {out['peak_device_gb']} GB "
+        f"(torch allocator, per process; the killed reader printed none); "
+        f"card memory used, all contexts, peak {out['card_mib_peak']} MiB "
+        f"(nvidia-smi, sampled each second)")
+
+    # Hold it.
+    if updater_rc != 0:
+        raise AssertionError(f"the updater exited rc={updater_rc}")
+    if report.reader_restarts < 1 or "pid" not in kill:
+        raise AssertionError("reader 0 was not killed and restarted")
+    if report.max_staleness() > 1:
+        raise AssertionError(f"staleness {report.max_staleness()} > 1")
+    if len(report.answers) + report.rejected != report.offered:
+        raise AssertionError(f"answered {len(report.answers)} + rejected "
+                             f"{report.rejected} != offered "
+                             f"{report.offered}")
+    t0 = time.perf_counter()
+    head = ckpt.current_step(pub)
+    if head != SERVE_BATCHES:
+        raise AssertionError(f"CURRENT names v{head}")
+    for v in range(SERVE_BATCHES + 1):
+        names = sorted(os.listdir(run_a / f"step_{v}"))
+        if sorted(os.listdir(REPLICA_DIR / f"step_{v}")) != names:
+            raise AssertionError(f"published step {v} has other leaves")
+        _, bad, err = filecmp.cmpfiles(run_a / f"step_{v}",
+                                       REPLICA_DIR / f"step_{v}", names,
+                                       shallow=False)
+        if bad or err:
+            raise AssertionError(f"published step {v} != run A's: {bad}"
+                                 f" {err}")
+    checked = {}
+    for v in sorted({a.version for a in report.answers}):
+        rows = [(a.qs, a.qt, a.answer) for a in report.answers
+                if a.version == v][:REPLICA_CHECK]
+        snap = tsnap.restore_snapshot(pub, step=v, mmap=True, device=dev)
+        check_served(torch, np, dev, snap, rows, f"replica version {v}")
+        checked[v] = len(rows)
+        del snap
+    readers = [e for e in exits if e["role"] == "reader"]
+    clean = REPLICA_READERS + report.reader_restarts - 1
+    upd = [e for e in exits if e["role"] == "updater"]
+    if len(readers) != clean or not upd:
+        raise AssertionError(f"exit lines: {len(readers)} readers (want "
+                             f"{clean}), {len(upd)} updater")
+    if any(min(e["launches"].values()) <= 0 for e in readers) or \
+            upd[0]["launches"]["relax_sweep"] <= 0:
+        raise AssertionError(f"a role skipped a kernel: {exits}")
+    out["checked_answers"] = checked
+    out["check_s"] = time.perf_counter() - t0
+    shutil.rmtree(REPLICA_DIR, ignore_errors=True)
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 9: published v0..v{SERVE_BATCHES} == run A's steps byte for "
+        f"byte; served answers == COO path == scipy BFS per version "
+        f"{checked}; launches per role "
+        f"{[(e['role'], e.get('reader'), e['launches']) for e in exits]} "
+        f"({out['check_s']:.1f} s of checks); phase {out['wall_s']:.1f} s")
     return out
 
 
@@ -1619,7 +1927,14 @@ def main() -> int:
     autotune = run_autotune(torch, dev, serve_base, final_a)
     del final_a
 
-    # --- 9. the kernels line and the summary --------------------------------------
+    # --- 9. the replica tier at full width --------------------------------------
+    try:
+        replica_tier = run_replica(torch, np, dev, serve_base)
+    except BaseException:
+        dump_role_logs(REPLICA_DIR / "logs")
+        raise
+
+    # --- 10. the kernels line and the summary -------------------------------------
     key2_row = sweep_rows[2]
     kernels = [
         dict(name="relax_sweep", route="cuda",
@@ -1668,6 +1983,7 @@ def main() -> int:
                    minplus=mp_rows,
                    frontier=frontier, edge_relax=er_row, embed_bag=bag_rows,
                    serve=serve, directed=directed, autotune=autotune,
+                   replica=replica_tier,
                    profiler_short_passes=short_passes,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")

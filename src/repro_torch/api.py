@@ -5,6 +5,7 @@
     >>> g, lab, affected = api.update(g, lab, updates)
     >>> dist = api.query(g, lab, sources, targets)
     >>> report = api.serve(n=5000, batches=3, pipeline=True)
+    >>> report = api.serve(n=5000, readers=2, publish_dir="pub")
 
 The same verbs as `repro.api`, on one GPU. `build` runs on the GPU unless
 it is given `device="cpu"`, and raises when there is no GPU and no device
@@ -122,20 +123,19 @@ def query(g: Graph, lab: HighwayLabelling, s, t, *, max_steps: int = 64,
 
 def serve(spec: ServeSpec | None = None, *, publish_dir: str | None = None,
           device: str | torch.device | None = None, **overrides):
-    """Run the single-process serving loop for a `ServeSpec`; returns its
-    `ServeReport`.
+    """Serve a `ServeSpec`: the single-process serving loop, returning its
+    `ServeReport`, or with `publish_dir` the replica tier (one updater
+    publishing into `publish_dir`, `topology.readers` reader processes and
+    a router, driven by an open-loop client stream), returning its
+    `ReplicaReport`.
 
     `overrides` are `ServeSpec` group fields by name (`n=5000`,
-    `pipeline=True`, ...) applied over `spec` (or over the defaults).
-    `device=None` is the GPU. The replica tier behind `publish_dir` is not
-    ported yet.
+    `pipeline=True`, `readers=2`, ...) applied over `spec` (or over the
+    defaults). `device=None` is the GPU, in every process of the tier.
     """
+    from repro_torch.launch import replica
     from repro_torch.launch.serve import ServeLoop
 
-    if publish_dir is not None:
-        raise NotImplementedError(
-            "serve(publish_dir=...): the replica tier is not ported yet "
-            "(ROADMAP § 1, item 8)")
     spec = spec or ServeSpec()
     groups = {}
     for gname, cls in SPEC_GROUPS:
@@ -146,4 +146,7 @@ def serve(spec: ServeSpec | None = None, *, publish_dir: str | None = None,
     if overrides:
         raise TypeError(f"unknown serve() overrides: {sorted(overrides)}")
     spec = dataclasses.replace(spec, **groups)
+    if publish_dir is not None:
+        return replica.serve_main(spec, publish_dir, verify_limit=None,
+                                  device=device)
     return ServeLoop(spec.to_serve_config(), device=device).run()

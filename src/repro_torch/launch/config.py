@@ -154,9 +154,9 @@ class TopologySpec:
     """Process topology of the replica tier (DESIGN.md §9).
 
     The in-process `ServeLoop` ignores this spec entirely; it configures
-    the replica tier (one updater, `readers` reader processes and a
-    router), which the port does not have yet (ROADMAP § 1, item 8). It
-    is kept so that one `ServeSpec` JSON serves both packages.
+    the replica tier (`launch/replica.py`: one updater, `readers` reader
+    processes and a router). The device is not part of it: each role
+    takes ``--device`` on its own command line, like ``--port``.
     """
     readers: int = _f(2, "reader-replica process count")
     host: str = _f("127.0.0.1", "bind host of the router and readers")

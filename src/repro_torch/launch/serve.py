@@ -33,6 +33,10 @@ and serves the winner (`core/autotune.py`); ``--tune-table PATH`` keeps
 the winners on disk (and implies ``--autotune``), so a restart measures
 nothing. ``--mesh`` is not ported yet and raises.
 
+This is one process. The replica tier (`launch/replica.py`) runs this
+loop with the query stream off as its updater, publishes every version,
+and answers queries from reader processes behind a router.
+
 Checkpointing: ``--ckpt-dir`` persists the full serve state each tick
 (graph slots, labelling, version, the host edge list) in the reference's
 format; ``--resume`` restarts from the newest checkpoint and continues the
@@ -240,6 +244,40 @@ class ServeReport:
         return float(s.mean()) if s.size else 0.0
 
 
+def serve_engine(cfg: ServeConfig,
+                 device: torch.device) -> RelaxEngine | None:
+    """The relaxation engine a serve process runs on `device`, or None for
+    the COO path (`backend="jnp"`). The serve loop, the replica tier's
+    updater (through the loop) and its readers all build theirs here.
+
+    Raises for a setting the port does not run: `mesh`, an unknown
+    backend, and the COO path on the GPU, where it would bypass the kernel.
+    """
+    if cfg.backend not in ("auto", "jnp", "pallas"):
+        raise ValueError(f"unknown backend {cfg.backend!r}; pick from "
+                         "('auto', 'jnp', 'pallas')")
+    if cfg.mesh != "none":
+        raise NotImplementedError(
+            f"mesh={cfg.mesh!r}: mesh sharding is not ported yet "
+            "(ROADMAP § 1, item 9)")
+    if cfg.backend == "jnp":
+        # The COO path stands in for the reference's jnp backend.
+        if device.type != "cpu":
+            raise ValueError(
+                "backend 'jnp' (the COO path, plan=None) runs on the "
+                "CPU only; on the GPU every sweep goes through the "
+                "relax-sweep kernel (backend 'auto' or 'pallas')")
+        if cfg.frontier:
+            raise ValueError("the frontier mode needs the tiled engine "
+                             "(backend 'auto' or 'pallas')")
+        return None
+    return RelaxEngine(block_v=cfg.block_v, block_e=cfg.block_e,
+                       shards=cfg.tile_shards, frontier=cfg.frontier,
+                       frontier_threshold=cfg.frontier_threshold,
+                       autotune=cfg.autotune, tune_table=cfg.tune_table,
+                       device=device)
+
+
 class ServeLoop:
     """The serving pipeline: one instance owns the engine, the snapshot
     store, the scenario streams and the open-loop query clock.
@@ -259,13 +297,6 @@ class ServeLoop:
         if cfg.graph not in ("ba", "road"):
             raise ValueError(f"unknown graph family {cfg.graph!r}; "
                              f"choose 'ba' or 'road'")
-        if cfg.backend not in ("auto", "jnp", "pallas"):
-            raise ValueError(f"unknown backend {cfg.backend!r}; pick from "
-                             "('auto', 'jnp', 'pallas')")
-        if cfg.mesh != "none":
-            raise NotImplementedError(
-                f"mesh={cfg.mesh!r}: mesh sharding is not ported yet "
-                "(ROADMAP § 1, item 9)")
         self.device = resolve_device(device)
         if cfg.graph == "road":
             # The grid realises rows·cols >= n vertices; queries, update
@@ -273,27 +304,9 @@ class ServeLoop:
             rows = max(2, int(math.isqrt(cfg.n)))
             cols = max(2, (cfg.n + rows - 1) // rows)
             cfg.n = rows * cols
-        self.engine: RelaxEngine | None = None
-        if cfg.backend == "jnp":
-            # The COO path stands in for the reference's jnp backend; on
-            # the GPU it would bypass the kernel, so it runs on the CPU.
-            if self.device.type != "cpu":
-                raise ValueError(
-                    "backend 'jnp' (the COO path, plan=None) runs on the "
-                    "CPU only; on the GPU every sweep goes through the "
-                    "relax-sweep kernel (backend 'auto' or 'pallas')")
-            if cfg.frontier:
-                raise ValueError("the frontier mode needs the tiled engine "
-                                 "(backend 'auto' or 'pallas')")
-            self.backend = "coo"
-        else:
-            self.engine = RelaxEngine(
-                block_v=cfg.block_v, block_e=cfg.block_e,
-                shards=cfg.tile_shards, frontier=cfg.frontier,
-                frontier_threshold=cfg.frontier_threshold,
-                autotune=cfg.autotune, tune_table=cfg.tune_table,
-                device=self.device)
-            self.backend = "cuda" if self.device.type == "cuda" else "plain"
+        self.engine = serve_engine(cfg, self.device)
+        self.backend = "coo" if self.engine is None else (
+            "cuda" if self.device.type == "cuda" else "plain")
         self.store: SnapshotStore | None = None
         self.report: ServeReport | None = None
         self.edge_set: EdgeSet | None = None

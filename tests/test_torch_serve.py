@@ -27,6 +27,7 @@ from repro.graphs import generators as jgen
 from repro.launch import config as jconfig
 from repro.launch import serve as jserve
 from repro_torch import api
+from repro_torch.checkpoint import manager as tckpt
 from repro_torch.core import query as tq
 from repro_torch.graphs import coo as tcoo
 from repro_torch.launch import config as tconfig
@@ -300,13 +301,19 @@ def test_serve_spec_round_trips_between_packages():
         tconfig.ServeSpec.from_json(json.dumps({"nope": {}}))
 
 
-def test_api_serve_runs_the_loop():
+def test_api_serve_runs_the_loop(tmp_path):
     rep = api.serve(device="cpu", n=100, deg=2, landmarks=4, batches=1,
                     batch_size=6, queries=4, qps=1e5, microbatch=4,
                     quiet=True)
     assert rep.final.version == 1 and rep.backend == "plain"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        api.serve(publish_dir="pub", device="cpu")
+    # With a publish dir it runs the replica tier, every role on the CPU.
+    rep = api.serve(publish_dir=str(tmp_path), device="cpu", n=100, deg=2,
+                    landmarks=4, batches=2, batch_size=6, queries=10,
+                    qps=200.0, microbatch=4, readers=1, verify=True,
+                    quiet=True)
+    assert rep.offered == len(rep.answers) + rep.rejected == 20
+    assert rep.max_staleness() <= 1
+    assert tckpt.current_step(str(tmp_path)) == 2
     with pytest.raises(TypeError, match="unknown serve"):
         api.serve(device="cpu", nope=1)
 
