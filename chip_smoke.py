@@ -116,7 +116,22 @@
    (all, and while a reader maps a version), rates, router stats, map
    seconds per reader and version, barrier waits, the restarted reader's
    spawn to first ack, and each process's peak device memory.
-10. Prints a `summary:` line with every number above as JSON, the
+10. The sharded path (`core/shard.py`) at phase 3's width, on meshes of
+   the one card (a device repeats in the grid, so the shards run one
+   after another): (data, model) = (1, 1), (1, 4), (2, 2), (4, 1). Each
+   mesh's `shard_build_labelling` and `shard_batchhl_update` (phase 3's
+   plans of G and G', tiled once) equal phase 3's labelling, update and
+   aff; `affected_vertices` equals aff.any(0); `shard_batched_query` on
+   phase 3's queries in microbatches of 32 equals phase 3's answers (and
+   so scipy BFS on the 64 of phase 4b). Then `pipelined_update` on the
+   (2, 2) mesh, full sweep, fused and frontier, held to phase 3's update
+   with the host syncs of every step; then `ServeLoop` on the (2, 2) mesh,
+   2 ticks of run A's configuration in pipeline mode, whose versions 1
+   and 2 equal run A's steps on disk and whose served answers equal the
+   COO path and scipy BFS. Build, update and query-microbatch p50 per
+   mesh beside the unsharded path's with the same plans, kernel A's and
+   B's launches per mesh, peak device memory and the phase's wall time.
+11. Prints a `summary:` line with every number above as JSON, the
    `{"kernels": [...]}` line (kernel A's and B's launches are run A's),
    the card line, and last `{"ok": true, "device": {...}}`.
 
@@ -851,9 +866,10 @@ def step_syncs(torch, gen, sources: dict):
 
 
 def chunk_profile(torch, snap, batch, plan, g_new, want, what: str,
-                  fused: bool = False) -> dict:
-    """One pipelined update (chunk_sweeps 1) stepped by hand: chunks per
-    phase and the host syncs of each step, held to `want` (g, lab, aff)."""
+                  fused: bool = False, mesh=None, phase: str = "6") -> dict:
+    """One pipelined update (chunk_sweeps 1, on `mesh` if given) stepped
+    by hand: chunks per phase and the host syncs of each step, held to
+    `want` (g, lab, aff)."""
     from repro_torch.core import engine as teng
     from repro_torch.core import snapshot as tsnap
     teng.WAVES.clear()
@@ -861,7 +877,8 @@ def chunk_profile(torch, snap, batch, plan, g_new, want, what: str,
     t0 = time.perf_counter()
     sources: dict = {}
     steps, last, (nxt, aff) = step_syncs(torch, tsnap.pipelined_update(
-        snap, batch, plan=plan, g_new=g_new, fused=fused), sources)
+        snap, batch, plan=plan, g_new=g_new, fused=fused, mesh=mesh),
+        sources)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     g, lab, aff_want = want
@@ -876,7 +893,7 @@ def chunk_profile(torch, snap, batch, plan, g_new, want, what: str,
                syncs={k: v for k, v in by_tag.items()},
                last_step_syncs=last, sync_sources=sources,
                waves=dict(teng.WAVES))
-    log(f"phase 6 chunks ({what}): {wall:.3f} s, chunks per phase "
+    log(f"phase {phase} chunks ({what}): {wall:.3f} s, chunks per phase "
         f"{out['chunks']}; host syncs per step {out['syncs']}, last step "
         f"{last}, at {sources}; == the monolithic update (slots, "
         "labelling, aff)")
@@ -1625,6 +1642,173 @@ def run_replica(torch, np, dev, base: dict) -> dict:
     return out
 
 
+# --- phase 10: the sharded path on meshes of the one card --------------------
+
+SHARD_MESHES = ((1, 1), (1, 4), (2, 2), (4, 1))   # (data, model)
+SHARD_SERVE_MESH = (2, 2)
+
+
+def run_sharded(torch, np, dev, card, g0, lab0, batch, full, answers, qs,
+                qt, fr, base) -> dict:
+    """Phase 10: `core/shard.py` at phase 3's width on meshes whose every
+    device is the one card, held bit for bit to phase 3's build, update
+    and answers; the pipelined update and the serve loop on a mesh."""
+    from repro_torch import api
+    from repro_torch.core import batch as tbat
+    from repro_torch.core import construct as tcon
+    from repro_torch.core import engine as teng
+    from repro_torch.core import query as tq
+    from repro_torch.core import shard
+    from repro_torch.core import snapshot as tsnap
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import ServeConfig, ServeLoop
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    g1, lab1, aff1 = full
+    eng = api.default_engine(dev)
+    plan0, plan1 = eng.prepare(g0), eng.prepare(g1)   # tiled once, reused
+    lm = lab0.landmarks
+    n_q = len(answers)
+    s_all = torch.from_numpy(qs[:n_q]).to(dev)
+    t_all = torch.from_numpy(qt[:n_q]).to(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def drive(build, update, query) -> dict:
+        """Build, update and queries in microbatches, each timed and its
+        kernel launches counted, every result held to phase 3's."""
+        row = {}
+        reset_launches()
+        lab, row["build_s"] = timed(build)
+        row["build_launches"] = read_launches()
+        for f in ("landmarks", "dist", "hub", "highway"):
+            if not torch.equal(getattr(lab, f), getattr(lab0, f)):
+                raise AssertionError(f"{f} after the build != phase 3's")
+        reset_launches()
+        (_, lab_u, aff), row["update_s"] = timed(lambda: update(lab))
+        row["update_launches"] = read_launches()
+        for f in ("dist", "hub", "highway"):
+            if not torch.equal(getattr(lab_u, f), getattr(lab1, f)):
+                raise AssertionError(f"{f} after the update != phase 3's")
+        if not torch.equal(aff, aff1):
+            raise AssertionError("aff != phase 3's")
+        reset_launches()
+        mb, got = [], []
+        for i in range(0, n_q, MICROBATCH):
+            sl = slice(i, i + MICROBATCH)
+            d, secs = timed(lambda: query(lab_u, s_all[sl], t_all[sl]))
+            got.append(d)
+            mb.append(secs * 1e3)
+        row["query_launches"] = read_launches()
+        if not torch.equal(torch.cat(got), answers):
+            raise AssertionError("answers != phase 3's")
+        row["query_mb_ms"] = mb
+        row["query_mb_p50_ms"] = statistics.median(mb)
+        return row, aff
+
+    out: dict = {"meshes": {}}
+    # The unsharded path with the same plans, for the comparison.
+    row, _ = drive(
+        lambda: tcon.build_labelling(g0, lm, plan=plan0),
+        lambda lab: tbat.batchhl_update(g0, batch, lab, plan=plan1,
+                                        g_new=g1),
+        lambda lab, s, t: tq.batched_query(g1, lab, s, t,
+                                           max_steps=MAX_STEPS, plan=plan1))
+    out["unsharded"] = row
+    log(f"phase 10 unsharded ({card}): build {row['build_s']:.3f} s, "
+        f"update {row['update_s']:.3f} s, query microbatch p50 "
+        f"{row['query_mb_p50_ms']:.3f} ms")
+    for data, model in SHARD_MESHES:
+        mesh = make_host_mesh(model=model, devices=[dev] * (data * model))
+        row, aff = drive(
+            lambda: shard.shard_build_labelling(mesh, g0, lm, plan=plan0),
+            lambda lab: shard.shard_batchhl_update(mesh, g0, batch, lab,
+                                                   plan=plan1, g_new=g1),
+            lambda lab, s, t: shard.shard_batched_query(
+                mesh, g1, lab, s, t, max_steps=MAX_STEPS, plan=plan1))
+        if not torch.equal(shard.affected_vertices(mesh, aff),
+                           aff1.any(0)):
+            raise AssertionError("affected_vertices != aff.any(0)")
+        # Kernel B once per (data, model) shard of each microbatch;
+        # kernel A in every shard's waves.
+        # Every shard's fixpoints launch kernel A at least once each.
+        n_mb = len(row["query_mb_ms"])
+        if row["query_launches"]["minplus"] != n_mb * data * model or min(
+                row["build_launches"]["relax_sweep"],
+                row["update_launches"]["relax_sweep"]) < data * model or \
+                row["query_launches"]["relax_sweep"] <= 0:
+            raise AssertionError(f"mesh ({data}, {model}): launches {row}")
+        key = f"data={data},model={model}"
+        out["meshes"][key] = row
+        log(f"phase 10 mesh ({data}, {model}) ({card}): build "
+            f"{row['build_s']:.3f} s, update {row['update_s']:.3f} s, query "
+            f"microbatch p50 {row['query_mb_p50_ms']:.3f} ms; launches "
+            f"build {row['build_launches']['relax_sweep']} A, update "
+            f"{row['update_launches']['relax_sweep']} A, queries "
+            f"{row['query_launches']['relax_sweep']} A + "
+            f"{row['query_launches']['minplus']} B; == phase 3's labelling, "
+            f"update, aff, affected vertices and {n_q} answers")
+
+    # The pipelined update's chunks on a mesh, held to phase 3's update.
+    mesh = make_host_mesh(model=SHARD_SERVE_MESH[1],
+                          devices=[dev] * (SHARD_SERVE_MESH[0]
+                                           * SHARD_SERVE_MESH[1]))
+    snap0 = tsnap.Snapshot(0, g0, lab0, None)
+    out["chunks"] = {
+        "full": chunk_profile(torch, snap0, batch, plan1, g1, full,
+                              "full, mesh (2, 2)", mesh=mesh, phase="10"),
+        "fused": chunk_profile(torch, snap0, batch, plan1, g1, full,
+                               "fused, mesh (2, 2)", fused=True, mesh=mesh,
+                               phase="10"),
+        "frontier": chunk_profile(torch, snap0, batch, fr.prepare(g1), g1,
+                                  full, "frontier, mesh (2, 2)", mesh=mesh,
+                                  phase="10")}
+
+    # The serve loop on the mesh: 2 ticks of run A, held to run A's steps.
+    cfg = ServeConfig(**{**base, "batches": 2}, pipeline=True,
+                      keep_history=True, mesh="host",
+                      shards=SHARD_SERVE_MESH[1])
+    reset_launches()
+    rep, wall = timed(lambda: ServeLoop(cfg, mesh=mesh).run())
+    row = serve_row(rep, wall)
+    row["launches"] = read_launches()
+    checked = {}
+    for v in (1, 2):
+        want = tsnap.restore_snapshot(str(SERVE_DIR / "a"), step=v,
+                                      device=dev)
+        same_snapshot(torch, dataclasses.replace(rep.history[v], plan=None),
+                      want, f"mesh serve loop, version {v}")
+        del want
+    for v, snap in sorted(rep.history.items()):
+        rows = served_answers((rep,), v, SERVE_CHECK)
+        if rows:
+            check_served(torch, np, dev, snap, rows,
+                         f"mesh serve loop, version {v}")
+        checked[v] = len(rows)
+    row["checked_answers"] = checked
+    out["serve"] = row
+    pct = row["latency_s"]
+    log(f"phase 10 serve loop on mesh (2, 2) ({card}): {wall:.1f} s; "
+        + "; ".join(f"tick {t['tick']} update {t['update_s']:.3f} s"
+                    for t in row["ticks"])
+        + f" | latency p50 {pct['p50'] * 1e3:.1f} ms p99 "
+        f"{pct['p99'] * 1e3:.1f} ms; launches {row['launches']}; versions "
+        f"1, 2 == run A's steps; served answers == COO path == scipy BFS "
+        f"{checked}")
+    del rep
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 10 ({card}): {out['wall_s']:.1f} s, peak device memory "
+        f"{out['peak_gb']:.2f} GB")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1919,6 +2103,13 @@ def main() -> int:
     serve, serve_base, final_a = run_serve(
         torch, np, dev, g0, lab0, batch, (g1, lab1, aff1), trickle, fr_engine)
 
+    # --- 10. the sharded path on meshes of the one card ---------------------
+    # (before phase 7 frees phase 3's state; run A's steps are still on
+    # disk until phase 9)
+    sharded = run_sharded(torch, np, dev, card, g0, lab0, batch,
+                          (g1, lab1, aff1), answers, qs, qt, fr_engine,
+                          serve_base)
+
     # --- 7. directed BatchHL at full width -----------------------------------
     del g1, lab1, aff1, fr_engine, trickle, lab_eff, key2, hub_mask, ds
     directed = run_directed(torch, np, dev, edges)
@@ -1934,7 +2125,7 @@ def main() -> int:
         dump_role_logs(REPLICA_DIR / "logs")
         raise
 
-    # --- 10. the kernels line and the summary -------------------------------------
+    # --- 11. the kernels line and the summary --------------------------------
     key2_row = sweep_rows[2]
     kernels = [
         dict(name="relax_sweep", route="cuda",
@@ -1983,7 +2174,7 @@ def main() -> int:
                    minplus=mp_rows,
                    frontier=frontier, edge_relax=er_row, embed_bag=bag_rows,
                    serve=serve, directed=directed, autotune=autotune,
-                   replica=replica_tier,
+                   replica=replica_tier, sharded=sharded,
                    profiler_short_passes=short_passes,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")

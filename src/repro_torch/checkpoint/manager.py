@@ -159,8 +159,10 @@ def restore(ckpt_dir: str, tree_like: dict, step: int | None = None, *,
     (None: the GPU, raising without one), each leaf cast to its template's
     dtype; returns (tree, step).
 
-    Placing leaves on a mesh (the reference's `shardings`) comes with the
-    port's mesh support.
+    Every leaf lands on the one `device`. The reference places leaves on
+    a mesh (`shardings`); the port's mesh runs keep their labelling
+    gathered on the mesh's first device (`core/shard.py`), so a resume
+    with a mesh restores onto that device.
     """
     device = resolve_device(device)
     step = step if step is not None else latest_step(ckpt_dir)

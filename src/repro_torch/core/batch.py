@@ -91,6 +91,15 @@ def active_index(rows: torch.Tensor, count: int) -> torch.Tensor:
     return order.indices[:count]
 
 
+def frontier_probe(plan: RelaxPlan, front: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A frontier wave's device half before its host read: (active-row
+    flags [NR], [live, count]), `live` whether `front` is not empty and
+    `count` how many rows it activates."""
+    rows, count = frontier_active_rows(plan, front)
+    return rows, torch.stack([front.any().to(count.dtype), count])
+
+
 def frontier_wave(kind: str, plan: RelaxPlan, g: Graph, full_step,
                   masked_step, x: torch.Tensor, front: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor, bool]:
@@ -105,9 +114,18 @@ def frontier_wave(kind: str, plan: RelaxPlan, g: Graph, full_step,
     (`FrontierTiles.propagate`, a boolean gather of the changed blocks'
     rows, syncs the host once more on the GPU.)
     """
+    rows, flags = frontier_probe(plan, front)
+    live, count = flags.tolist()
+    return frontier_apply(kind, plan, g, full_step, masked_step, x, front,
+                          rows, live, count)
+
+
+def frontier_apply(kind: str, plan: RelaxPlan, g: Graph, full_step,
+                   masked_step, x: torch.Tensor, front: torch.Tensor,
+                   rows: torch.Tensor, live: int, count: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    """`frontier_wave` after its host read of `frontier_probe`'s flags."""
     ft = plan.frontier
-    rows, count = frontier_active_rows(plan, front)
-    live, count = torch.stack([front.any().to(count.dtype), count]).tolist()
     if not live:
         return x, front, False
     WAVES[kind] += 1
@@ -329,10 +347,26 @@ def repair_base_frontier(plan: RelaxPlan, g_new: Graph, aff: torch.Tensor,
     of every plane, with no propagation hop. The full sweep runs instead
     when those rows outgrow the row budget.
     """
+    rows, count = repair_base_rows(plan, aff)
+    return repair_base_apply(plan, g_new, aff, key2_g, hub_mask, rows,
+                             int(count.item()))
+
+
+def repair_base_rows(plan: RelaxPlan, aff: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`repair_base_frontier`'s device half before its host read: (the
+    tile rows of the blocks holding affected vertices [NR], their
+    count)."""
     ft = plan.frontier
     rows = ft.active_rows(ft.changed_blocks(aff.any(0)))
-    count = int(rows.sum().item())
-    if count > ft.rows_cap:
+    return rows, rows.sum()
+
+
+def repair_base_apply(plan: RelaxPlan, g_new: Graph, aff: torch.Tensor,
+                      key2_g: torch.Tensor, hub_mask: torch.Tensor,
+                      rows: torch.Tensor, count: int) -> torch.Tensor:
+    """`repair_base_frontier` after its host read of the row count."""
+    if count > plan.frontier.rows_cap:
         return repair_base(plan, g_new, aff, key2_g, hub_mask)
     WAVES["repair_base.masked"] += 1
     src_g, dstg, valid_g, w_g = gather_rows(plan, g_new,

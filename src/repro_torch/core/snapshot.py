@@ -36,13 +36,17 @@ old plane with the new.
 
 Checkpointing: `save_snapshot` / `restore_snapshot` persist the full
 serve state (graph slots, labelling, version) in the reference's format;
-the `RelaxPlan` is derived state, prepared again on restore. A mesh
-(`mesh=`) is not supported yet: `pipelined_update` raises for one.
+the `RelaxPlan` is derived state, prepared again on restore. With
+`mesh=`, `pipelined_update` runs the chunks' twins of `core/shard.py`
+through the same driver: per-shard planes between chunks, one host read
+of the merged `changed` flag per chunk.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
+import types
 import warnings
 
 import numpy as np
@@ -149,7 +153,7 @@ def _search_step(plan, g_new, best, seed, bound, hub_mask, improved):
     return search_basic_step(plan, g_new, best, seed, bound)
 
 
-def _search_kind(improved: bool) -> str:
+def search_kind(improved: bool) -> str:
     return "search_improved" if improved else "search_basic"
 
 
@@ -181,7 +185,7 @@ def search_chunk(g_new: Graph, best: torch.Tensor, seed: torch.Tensor,
     cur = best
     for _ in range(sweeps):
         cur = _search_step(plan, g_new, cur, seed, bound, hub_mask, improved)
-        WAVES[_search_kind(improved)] += 1
+        WAVES[search_kind(improved)] += 1
     return cur, (cur != best).any()
 
 
@@ -191,7 +195,7 @@ def search_finish(best: torch.Tensor, seeded: torch.Tensor,
     return seeded | (best < (INF_KEY4 if improved else INF_D))
 
 
-def _interior_mask(g_new: Graph, aff: torch.Tensor) -> torch.Tensor:
+def interior_mask(g_new: Graph, aff: torch.Tensor) -> torch.Tensor:
     """Per plane and slot: a live edge with both ends affected [P, E2] —
     a function of aff alone, formed once per repair."""
     return (g_new.valid & aff[:, g_new.src.to(torch.int64)]
@@ -211,9 +215,9 @@ def repair_chunk(g_new: Graph, cur: torch.Tensor, aff: torch.Tensor,
                  sweeps: int = 1, int_mask: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """`sweeps` interior repair waves → (cur', changed), out of place.
-    `int_mask` is `_interior_mask(g_new, aff)`, formed here if None."""
+    `int_mask` is `interior_mask(g_new, aff)`, formed here if None."""
     if int_mask is None:
-        int_mask = _interior_mask(g_new, aff)
+        int_mask = interior_mask(g_new, aff)
     out = cur
     for _ in range(sweeps):
         out = repair_step(plan, g_new, out, aff, hub_mask, int_mask)
@@ -266,7 +270,7 @@ def fused_search_chunk(g_new: Graph, best: torch.Tensor, seed: torch.Tensor,
     for _ in range(sweeps):
         changed = _lower_in_place(best, _search_cand(
             plan, g_new, best, seed, bound, hub_mask, improved), changed)
-        WAVES[_search_kind(improved)] += 1
+        WAVES[search_kind(improved)] += 1
     return best, changed
 
 
@@ -290,7 +294,7 @@ def fused_repair_chunk(g_new: Graph, cur: torch.Tensor, aff: torch.Tensor,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """`repair_chunk` lowering `cur` in place → (cur, changed)."""
     if int_mask is None:
-        int_mask = _interior_mask(g_new, aff)
+        int_mask = interior_mask(g_new, aff)
     changed = None
     for _ in range(sweeps):
         cand = relax_sweep(plan, g_new, cur, 2, INF_KEY2, hub=hub_mask,
@@ -320,7 +324,7 @@ def fused_repair_start_chunk(g_new: Graph, aff: torch.Tensor,
 # [P, NBf] through the chunk as extra state; a chunk's `changed` is "the
 # frontier is not empty". Fused or not, they build each plane out of place.
 
-def _search_wave_fns(plan, g_new, seed, bound, hub_mask, improved):
+def search_wave_fns(plan, g_new, seed, bound, hub_mask, improved):
     """(full_step, masked_step) pair for one search wave (Algo 2/3)."""
     def full(b):
         return _search_step(plan, g_new, b, seed, bound, hub_mask, improved)
@@ -344,10 +348,10 @@ def search_chunk_frontier(g_new: Graph, best: torch.Tensor,
                           plan: RelaxPlan, improved: bool = True,
                           sweeps: int = 1):
     """`search_chunk` with frontier waves → (best', front', changed)."""
-    full, masked = _search_wave_fns(plan, g_new, seed, bound, hub_mask,
-                                    improved)
+    full, masked = search_wave_fns(plan, g_new, seed, bound, hub_mask,
+                                   improved)
     for _ in range(sweeps):
-        best, front, _ = frontier_wave(_search_kind(improved), plan, g_new,
+        best, front, _ = frontier_wave(search_kind(improved), plan, g_new,
                                        full, masked, best, front)
     return best, front, front.any()
 
@@ -369,7 +373,7 @@ def repair_chunk_frontier(g_new: Graph, cur: torch.Tensor,
                           int_mask: torch.Tensor | None = None):
     """`repair_chunk` with frontier waves → (cur', front', changed)."""
     if int_mask is None:
-        int_mask = _interior_mask(g_new, aff)
+        int_mask = interior_mask(g_new, aff)
 
     def full(c):
         return repair_step(plan, g_new, c, aff, hub_mask, int_mask)
@@ -427,6 +431,9 @@ def pipelined_update(snapshot: Snapshot, batch: BatchUpdate, *,
     chunk (`chunk_sweeps` waves). As for `batchhl_update`, a `plan` must be
     prepared from the post-update graph; pass that graph as `g_new` to
     skip the recompute. `fused=True` runs the fused chunks (module doc).
+    With a `mesh` (`launch/mesh.py`) the chunks run through their twins in
+    `core/shard.py` on the maintenance plane grouping, and the labelling
+    and aff of the result are gathered on the mesh's first device.
 
     Drive it with `run_pipelined_update`, or by hand:
 
@@ -434,17 +441,52 @@ def pipelined_update(snapshot: Snapshot, batch: BatchUpdate, *,
         for _phase in gen:
             serve_pending_queries()      # interleaved work goes here
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "pipelined_update on a mesh is not ported yet (ROADMAP § 1, "
-            "item 9: mesh sharding)")
     if chunk_sweeps < 1:
         raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
     return _pipelined(snapshot, batch, plan, g_new, improved, chunk_sweeps,
-                      fused)
+                      fused, _chunk_fns(mesh))
 
 
-def _pipelined(snapshot, batch, plan, g_new, improved, sweeps, fused):
+def _chunk_fns(mesh) -> types.SimpleNamespace:
+    """The chunk functions `_pipelined` drives: this module's, or with a
+    mesh their twins in `core/shard.py`, which keep per-shard plane
+    lists between chunks and gather the labelling and aff at the end."""
+    if mesh is None:
+        return types.SimpleNamespace(
+            seed=search_seed, fstart=fused_search_start, chunk=search_chunk,
+            fchunk=fused_search_chunk, finish=search_finish,
+            interior=interior_mask, rstart=repair_start,
+            rchunk=repair_chunk, frstart=fused_repair_start_chunk,
+            frchunk=fused_repair_chunk, seed_blocks=frontier_seed_blocks,
+            f_fstart=fused_search_start_frontier,
+            f_chunk=search_chunk_frontier, f_rstart=repair_start_frontier,
+            f_rchunk=repair_chunk_frontier,
+            f_frstart=fused_repair_start_chunk_frontier,
+            update_finish=update_finish, gather=lambda aff: aff)
+    from repro_torch.core import shard
+    on = functools.partial
+    return types.SimpleNamespace(
+        seed=on(shard.shard_search_seed, mesh),
+        fstart=on(shard.shard_fused_search_start, mesh),
+        chunk=on(shard.shard_search_chunk, mesh),
+        fchunk=on(shard.shard_fused_search_chunk, mesh),
+        finish=on(shard.shard_search_finish, mesh),
+        interior=on(shard.shard_interior_mask, mesh),
+        rstart=on(shard.shard_repair_start, mesh),
+        rchunk=on(shard.shard_repair_chunk, mesh),
+        frstart=on(shard.shard_fused_repair_start_chunk, mesh),
+        frchunk=on(shard.shard_fused_repair_chunk, mesh),
+        seed_blocks=on(shard.shard_frontier_seed_blocks, mesh),
+        f_fstart=on(shard.shard_fused_search_start_frontier, mesh),
+        f_chunk=on(shard.shard_search_chunk_frontier, mesh),
+        f_rstart=on(shard.shard_repair_start_frontier, mesh),
+        f_rchunk=on(shard.shard_repair_chunk_frontier, mesh),
+        f_frstart=on(shard.shard_fused_repair_start_chunk_frontier, mesh),
+        update_finish=on(shard.shard_update_finish, mesh),
+        gather=on(shard.gather_planes, mesh))
+
+
+def _pipelined(snapshot, batch, plan, g_new, improved, sweeps, fused, fns):
     lab = snapshot.labelling
     if g_new is None:
         g_new = apply_batch(snapshot.graph, batch)
@@ -458,67 +500,66 @@ def _pipelined(snapshot, batch, plan, g_new, improved, sweeps, fused):
     if use_frontier(plan, g_new):
         if fused:
             best, front, seed, seeded, bound, hub_mask, changed = \
-                fused_search_start_frontier(*args, plan, improved, sweeps)
+                fns.f_fstart(*args, plan, improved, sweeps)
         else:
-            seed, seeded, bound, hub_mask = search_seed(*args, improved)
-            best, front, changed = seed, frontier_seed_blocks(plan, seeded), \
-                True
+            seed, seeded, bound, hub_mask = fns.seed(*args, improved)
+            best, front, changed = seed, fns.seed_blocks(plan, seeded), True
         yield "search-seed"
         while bool(changed):
-            best, front, changed = search_chunk_frontier(
+            best, front, changed = fns.f_chunk(
                 g_new, best, front, seed, bound, hub_mask, plan, improved,
                 sweeps)
             yield "search"
-        aff = search_finish(best, seeded, improved)
+        aff = fns.finish(best, seeded, improved)
         del best, seed, bound
-        int_mask = _interior_mask(g_new, aff)
+        int_mask = fns.interior(g_new, aff)
         if fused:
-            cur, front, changed = fused_repair_start_chunk_frontier(
+            cur, front, changed = fns.f_frstart(
                 g_new, aff, lab.dist, lab.hub, hub_mask, plan, sweeps,
                 int_mask)
         else:
-            cur, front = repair_start_frontier(g_new, aff, lab.dist,
-                                               lab.hub, hub_mask, plan)
+            cur, front = fns.f_rstart(g_new, aff, lab.dist, lab.hub,
+                                      hub_mask, plan)
             changed = True
         yield "repair-seed"
         while bool(changed):
-            cur, front, changed = repair_chunk_frontier(
+            cur, front, changed = fns.f_rchunk(
                 g_new, cur, front, aff, hub_mask, plan, sweeps, int_mask)
             yield "repair"
     else:
         if fused:
             best, seed, seeded, bound, hub_mask, changed = \
-                fused_search_start(*args, plan, improved, sweeps)
-            chunk = fused_search_chunk
+                fns.fstart(*args, plan, improved, sweeps)
+            chunk = fns.fchunk
         else:
-            seed, seeded, bound, hub_mask = search_seed(*args, improved)
+            seed, seeded, bound, hub_mask = fns.seed(*args, improved)
             best, changed = seed, True
-            chunk = search_chunk
+            chunk = fns.chunk
         yield "search-seed"
         while bool(changed):
             best, changed = chunk(g_new, best, seed, bound, hub_mask, plan,
                                   improved, sweeps)
             yield "search"
-        aff = search_finish(best, seeded, improved)
+        aff = fns.finish(best, seeded, improved)
         del best, seed, bound
-        int_mask = _interior_mask(g_new, aff)
+        int_mask = fns.interior(g_new, aff)
         if fused:
-            cur, changed = fused_repair_start_chunk(
-                g_new, aff, lab.dist, lab.hub, hub_mask, plan, sweeps,
-                int_mask)
-            chunk = fused_repair_chunk
+            cur, changed = fns.frstart(g_new, aff, lab.dist, lab.hub,
+                                       hub_mask, plan, sweeps, int_mask)
+            chunk = fns.frchunk
         else:
-            cur = repair_start(g_new, aff, lab.dist, lab.hub, hub_mask, plan)
+            cur = fns.rstart(g_new, aff, lab.dist, lab.hub, hub_mask, plan)
             changed = True
-            chunk = repair_chunk
+            chunk = fns.rchunk
         yield "repair-seed"
         while bool(changed):
             cur, changed = chunk(g_new, cur, aff, hub_mask, plan, sweeps,
                                  int_mask)
             yield "repair"
 
-    new_lab = update_finish(aff, cur, lab.dist, lab.hub, lab.landmarks)
-    return Snapshot(snapshot.version + 1, g_new, new_lab, plan), aff
+    new_lab = fns.update_finish(aff, cur, lab.dist, lab.hub, lab.landmarks)
+    return Snapshot(snapshot.version + 1, g_new, new_lab, plan), \
+        fns.gather(aff)
 
 
 def run_pipelined_update(gen) -> tuple[Snapshot, torch.Tensor]:

@@ -2,8 +2,9 @@
 
 The port of `repro.launch.config`, field for field, so that a `ServeSpec`
 JSON written by either package loads in the other. The port's
-`ServeLoop` raises for the setting it does not support yet (`mesh`), and
-maps `backend` onto its own kernels (`launch/serve.py`).
+`ServeLoop` maps `backend` onto its own kernels and `mesh="host"` onto a
+mesh of torch devices in one process (`launch/serve.py`,
+`launch/mesh.py`).
 
 The serve tier's settings are five composable specs —
 
@@ -111,8 +112,8 @@ class EngineSpec:
     use_minplus_kernel: bool = _f(False, "kept for spec compatibility: "
                                   "the Eq.-3 bound runs the min-plus "
                                   "kernel on the GPU either way")
-    mesh: str = _f("none", "run sharded on a device mesh",
-                   choices=("none", "host"))
+    mesh: str = _f("none", "run sharded on a host mesh of the local "
+                   "devices (core/shard.py)", choices=("none", "host"))
     shards: int = _f(1, "model-axis size of the host mesh")
 
 

@@ -1,0 +1,72 @@
+"""Host-device mesh: a `(data, model)` grid of torch devices in one process.
+
+The port of `repro.launch.mesh`. The reference's `shard_map` is SPMD under
+one controller: one process places the shards and runs the collectives.
+Here that controller is this process, holding a grid of `torch.device`s;
+`core/shard.py` runs a per-shard body on each grid cell and its
+collectives over the per-shard tensors. A device may repeat in the grid,
+so a mesh of several shards runs on one card (one after another, on its
+one stream) or, for the tests, on the CPU.
+
+Axis roles as in the reference: `data` takes query-batch shards (and
+landmark planes during maintenance), `model` landmark planes.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+
+AXES = ("data", "model")
+
+
+class Mesh:
+    """A `(data, model)` grid of devices; `grid[d][m]` is the device of
+    shard (d, m). `shape["data"]` and `shape["model"]` read as the
+    reference's `mesh.shape` does."""
+
+    def __init__(self, grid):
+        rows = [tuple(torch.device(x) for x in row) for row in grid]
+        if not rows or not rows[0] or any(len(r) != len(rows[0])
+                                          for r in rows):
+            raise ValueError("a mesh grid needs equal, non-empty rows")
+        self.grid = tuple(rows)
+        self.shape = {"data": len(rows), "model": len(rows[0])}
+
+    @property
+    def devices(self) -> list[torch.device]:
+        """Every shard's device, row-major (data-major)."""
+        return [x for row in self.grid for x in row]
+
+    @property
+    def first(self) -> torch.device:
+        """The device that gathered outputs land on."""
+        return self.grid[0][0]
+
+    def __repr__(self) -> str:
+        return (f"Mesh(data={self.shape['data']}, "
+                f"model={self.shape['model']}, devices={self.devices})")
+
+
+def make_host_mesh(model: int = 1, *, device=None, devices=None) -> Mesh:
+    """Host mesh over the local devices: (data = n // model, model).
+
+    By default the devices are every local device of `device`'s type, as
+    `resolve_device` settles it (None: the GPU, raising without one):
+    `torch.cuda.device_count()` cards, or one CPU. `devices=` lists them
+    instead, repeats allowed (the tests pass 8 × cpu). Device i of the
+    list is shard (i // model, i % model), the order of `jax.make_mesh`.
+    """
+    if devices is None:
+        dev = resolve_device(device)
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" else [dev])
+    else:
+        devices = [resolve_device(d) for d in devices]
+    n = len(devices)
+    if model < 1 or n % model:
+        raise ValueError(
+            f"model-axis size {model} must divide the {n} local devices")
+    return Mesh([devices[d * model:(d + 1) * model]
+                 for d in range(n // model)])

@@ -354,7 +354,8 @@ class _ReaderServer:
 
     `device=None` is the GPU and raises without one. Each map logs a
     ``replica map: {...}`` JSON line: its restore, prepare and warm
-    seconds, and when it was acked; on stopping, the reader logs the
+    seconds, when it was acked, and the mesh it answers on (None when
+    unsharded); on stopping, the reader logs the
     last `BATCH_LOG` routed batches it answered (start, size, seconds)
     as ``replica batches: {...}``.
     """
@@ -368,6 +369,7 @@ class _ReaderServer:
         self.device = resolve_device(device)
         self.running = True
         self._snap = None
+        self._mesh = None
         self._engine = None
         self._pins: dict[int, int] = {}   # version -> answers in flight
         self._pins_cv = threading.Condition()
@@ -380,15 +382,22 @@ class _ReaderServer:
     # -- snapshot mapping ---------------------------------------------------
 
     def _build_engine(self):
+        from repro_torch.core.shard import validate_landmark_sharding
+        from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.launch.serve import serve_engine
         e = self.spec.engine
-        # Same engine as the updater's ServeLoop (raising for the mesh,
-        # as the loop does), without the frontier mode, which only the
-        # update waves use: autotuned readers serve the tuner's winner,
-        # measured once per snapshot shape at the first prepare.
+        # Same engine as the updater's ServeLoop, without the frontier
+        # mode, which only the update waves use: autotuned readers serve
+        # the tuner's winner, measured once per snapshot shape at the
+        # first prepare. With mesh="host" the reader answers on its own
+        # host mesh, as the loop does.
         cfg = self.spec.to_serve_config(
             autotune=e.autotune or e.tune_table is not None, frontier=False)
         self._engine = serve_engine(cfg, self.device)
+        if e.mesh == "host":
+            self._mesh = make_host_mesh(model=e.shards, device=self.device)
+            validate_landmark_sharding(self._mesh,
+                                       self.spec.graph.landmarks)
 
     def _buckets(self) -> list[int]:
         """Padding widths of the query path. Coalesced dispatches are
@@ -431,15 +440,20 @@ class _ReaderServer:
         self._log("replica map: " + json.dumps(dict(
             reader=self.reader_id, pid=os.getpid(), version=version,
             start=t0, restore_s=t1 - t0, prepare_s=t2 - t1, warm_s=t3 - t2,
-            acked=time.monotonic())))
+            acked=time.monotonic(),
+            mesh=None if self._mesh is None else self._mesh.shape)))
 
     def _answer_snap(self, snap, qs: np.ndarray, qt: np.ndarray
                      ) -> np.ndarray:
         from repro_torch.core.query import batched_query
-        d = batched_query(snap.graph, snap.labelling,
-                          torch.from_numpy(qs).to(self.device),
-                          torch.from_numpy(qt).to(self.device),
-                          plan=snap.plan)
+        from repro_torch.core.shard import shard_batched_query
+        qs, qt = (torch.from_numpy(x).to(self.device) for x in (qs, qt))
+        if self._mesh is None:
+            d = batched_query(snap.graph, snap.labelling, qs, qt,
+                              plan=snap.plan)
+        else:
+            d = shard_batched_query(self._mesh, snap.graph, snap.labelling,
+                                    qs, qt, plan=snap.plan)
         return d.cpu().numpy()   # waits for the microbatch
 
     @contextlib.contextmanager

@@ -31,7 +31,16 @@ the CPU, whatever ``--use-minplus-kernel`` says. ``--autotune`` measures
 kernel A's launch shapes against the `sorted` impl once per snapshot shape
 and serves the winner (`core/autotune.py`); ``--tune-table PATH`` keeps
 the winners on disk (and implies ``--autotune``), so a restart measures
-nothing. ``--mesh`` is not ported yet and raises.
+nothing.
+
+Mesh sharding: ``--mesh host`` runs construction, updates and queries
+through `core/shard.py` on a `make_host_mesh` over the local devices of
+``--device`` (every card, or the one CPU); ``--shards M`` sets the
+model-axis size. Landmark counts are validated against both plane
+groupings (data × model for maintenance, model for queries) with an
+error naming the failing one. `ServeLoop(cfg, mesh=...)` takes a
+prebuilt mesh instead, whose devices may repeat (several shards on one
+card, one after another).
 
 This is one process. The replica tier (`launch/replica.py`) runs this
 loop with the query stream off as its updater, publishes every version,
@@ -65,6 +74,9 @@ from repro_torch.core.construct import (build_labelling,
 from repro_torch.core.engine import RelaxEngine
 from repro_torch.core.growth import GrowthEvent, GrowthPolicy, ensure_capacity
 from repro_torch.core.query import batched_query
+from repro_torch.core.shard import (shard_batched_query, shard_batchhl_update,
+                                    shard_build_labelling,
+                                    validate_landmark_sharding)
 from repro_torch.core.snapshot import (Snapshot, SnapshotStore,
                                        pipelined_update, restore_extra,
                                        restore_snapshot, save_snapshot)
@@ -73,6 +85,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs import generators as gen
 from repro_torch.graphs.coo import (apply_batch, from_edges, make_batch,
                                     to_numpy_wadj)
+from repro_torch.launch.mesh import Mesh, make_host_mesh
 
 
 class EdgeSet:
@@ -157,8 +170,8 @@ class ServeConfig:
     tile_shards: int = 1
     block_e: int | None = None   # tile-row width cap of the tiling
     use_minplus_kernel: bool = False  # kernel on the GPU regardless
-    mesh: str = "none"           # only "none" is ported
-    shards: int = 1
+    mesh: str = "none"           # "host": shard on make_host_mesh
+    shards: int = 1              # model-axis size of the host mesh
     autotune: bool = False       # tune impl + tile shape per snapshot shape
     tune_table: str | None = None  # on-disk tuning table (core/autotune.py)
     fused: bool = False          # fused pipelined chunks (snapshot.py)
@@ -250,16 +263,15 @@ def serve_engine(cfg: ServeConfig,
     the COO path (`backend="jnp"`). The serve loop, the replica tier's
     updater (through the loop) and its readers all build theirs here.
 
-    Raises for a setting the port does not run: `mesh`, an unknown
-    backend, and the COO path on the GPU, where it would bypass the kernel.
+    Raises for a setting the port does not run: an unknown backend or
+    mesh, and the COO path on the GPU, where it would bypass the kernel.
     """
     if cfg.backend not in ("auto", "jnp", "pallas"):
         raise ValueError(f"unknown backend {cfg.backend!r}; pick from "
                          "('auto', 'jnp', 'pallas')")
-    if cfg.mesh != "none":
-        raise NotImplementedError(
-            f"mesh={cfg.mesh!r}: mesh sharding is not ported yet "
-            "(ROADMAP § 1, item 9)")
+    if cfg.mesh not in ("none", "host"):
+        raise ValueError(f"unknown mesh {cfg.mesh!r}; pick from "
+                         "('none', 'host')")
     if cfg.backend == "jnp":
         # The COO path stands in for the reference's jnp backend.
         if device.type != "cpu":
@@ -283,10 +295,15 @@ class ServeLoop:
     store, the scenario streams and the open-loop query clock.
 
     `device=None` is the GPU and raises without one; tests pass "cpu".
+    With `cfg.mesh == "host"` it shards on `make_host_mesh(cfg.shards)`
+    over the local devices of `device`, or on `mesh` when given (its
+    model axis must be `cfg.shards`; `device` defaults to its first
+    device, where the graph and the gathered labelling live).
     """
 
     def __init__(self, cfg: ServeConfig,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh: Mesh | None = None):
         self.cfg = cfg
         #: optional process hooks: `on_start(snap0)` fires once the
         #: initial snapshot is in the store, before any tick;
@@ -297,6 +314,8 @@ class ServeLoop:
         if cfg.graph not in ("ba", "road"):
             raise ValueError(f"unknown graph family {cfg.graph!r}; "
                              f"choose 'ba' or 'road'")
+        if mesh is not None and device is None:
+            device = mesh.first
         self.device = resolve_device(device)
         if cfg.graph == "road":
             # The grid realises rows·cols >= n vertices; queries, update
@@ -305,12 +324,37 @@ class ServeLoop:
             cols = max(2, (cfg.n + rows - 1) // rows)
             cfg.n = rows * cols
         self.engine = serve_engine(cfg, self.device)
+        self.mesh = self._make_mesh(mesh)
         self.backend = "coo" if self.engine is None else (
             "cuda" if self.device.type == "cuda" else "plain")
         self.store: SnapshotStore | None = None
         self.report: ServeReport | None = None
         self.edge_set: EdgeSet | None = None
         self._oracle_adj: dict[int, dict] = {}  # version -> adjacency
+
+    def _make_mesh(self, mesh: Mesh | None) -> Mesh | None:
+        cfg = self.cfg
+        if cfg.mesh == "none":
+            if mesh is not None:
+                raise ValueError("a mesh was given but cfg.mesh is 'none'")
+            return None
+        if mesh is None:
+            mesh = make_host_mesh(model=cfg.shards, device=self.device)
+        elif mesh.shape["model"] != cfg.shards:
+            raise ValueError(f"the mesh's model axis is "
+                             f"{mesh.shape['model']}, cfg.shards is "
+                             f"{cfg.shards}")
+        if mesh.first != self.device:
+            raise ValueError(f"the mesh's first device {mesh.first} is not "
+                             f"the loop's device {self.device}")
+        validate_landmark_sharding(mesh, cfg.landmarks)
+        return mesh
+
+    def _mesh_desc(self) -> str:
+        if self.mesh is None:
+            return "unsharded"
+        return (f"mesh data={self.mesh.shape['data']} "
+                f"model={self.mesh.shape['model']}")
 
     @property
     def growth_policy(self) -> GrowthPolicy:
@@ -357,13 +401,17 @@ class ServeLoop:
         landmarks = select_landmarks_by_degree(g, cfg.landmarks)
         plan = self._prepare(g)
         t0 = time.time()
-        lab = build_labelling(g, landmarks, plan=plan)
+        if self.mesh is not None:
+            lab = shard_build_labelling(self.mesh, g, landmarks, plan=plan)
+        else:
+            lab = build_labelling(g, landmarks, plan=plan)
         self._sync()
         self.edge_set = EdgeSet(edges)
         self._log(f"constructed labelling: {cfg.n} vertices, "
                   f"{edges.shape[0]} edges, R={cfg.landmarks}, "
                   f"size={int(lab.label_size())}, {time.time() - t0:.2f}s "
-                  f"[backend={self.backend}, {self.device}]")
+                  f"[backend={self.backend}, {self.device}, "
+                  f"{self._mesh_desc()}]")
         return Snapshot(0, g, lab, plan)
 
     def _resumed_snapshot(self) -> Snapshot:
@@ -387,7 +435,8 @@ class ServeLoop:
         self._log(f"resumed at version {snap.version}: {cfg.n} vertices, "
                   f"{self.edge_set.count} edges, "
                   f"size={int(snap.labelling.label_size())} "
-                  f"[backend={self.backend}, {self.device}]")
+                  f"[backend={self.backend}, {self.device}, "
+                  f"{self._mesh_desc()}]")
         return snap
 
     # -- query stream -------------------------------------------------------
@@ -410,10 +459,13 @@ class ServeLoop:
 
     def _answer(self, snap: Snapshot, qs: np.ndarray,
                 qt: np.ndarray) -> np.ndarray:
-        d = batched_query(snap.graph, snap.labelling,
-                          torch.from_numpy(qs).to(self.device),
-                          torch.from_numpy(qt).to(self.device),
-                          plan=snap.plan)
+        qs, qt = (torch.from_numpy(x).to(self.device) for x in (qs, qt))
+        if self.mesh is None:
+            d = batched_query(snap.graph, snap.labelling, qs, qt,
+                              plan=snap.plan)
+        else:
+            d = shard_batched_query(self.mesh, snap.graph, snap.labelling,
+                                    qs, qt, plan=snap.plan)
         return d.cpu().numpy()   # waits for the microbatch
 
     def _drain_arrived(self, tick: int, tick_t0: float, offsets: np.ndarray,
@@ -466,9 +518,15 @@ class ServeLoop:
 
     def _update_sync(self, snap: Snapshot, batch, plan, g_next) -> Snapshot:
         """The whole update at once; queries wait behind it."""
-        g2, lab2, aff = batchhl_update(snap.graph, batch, snap.labelling,
-                                       improved=True, plan=plan,
-                                       g_new=g_next)
+        if self.mesh is None:
+            g2, lab2, aff = batchhl_update(snap.graph, batch, snap.labelling,
+                                           improved=True, plan=plan,
+                                           g_new=g_next)
+        else:
+            g2, lab2, aff = shard_batchhl_update(self.mesh, snap.graph,
+                                                 batch, snap.labelling,
+                                                 improved=True, plan=plan,
+                                                 g_new=g_next)
         self._sync()
         self._last_aff = aff
         return Snapshot(snap.version + 1, g2, lab2, plan)
@@ -479,7 +537,8 @@ class ServeLoop:
         """The chunked update: serve arrived microbatches at every yield."""
         cfg = self.cfg
         upd = pipelined_update(snap, batch, plan=plan, g_new=g_next,
-                               improved=True, chunk_sweeps=cfg.chunk_sweeps,
+                               mesh=self.mesh, improved=True,
+                               chunk_sweeps=cfg.chunk_sweeps,
                                fused=cfg.fused)
         head = snap.version + 1
         while True:
@@ -666,7 +725,8 @@ class ServeLoop:
                       f"[factor={cfg.growth_factor:g}, v-align="
                       f"{pol.block_v * pol.shards}]")
         self._log(f"serve loop done [backend={self.backend}, "
-                  f"{engine_desc}{self.device}, mode={mode}]")
+                  f"{engine_desc}{self.device}, {self._mesh_desc()}, "
+                  f"mode={mode}]")
         return self.report
 
 

@@ -334,3 +334,51 @@ def test_serve_loop_on_card_equals_cpu(dev, pipeline, tmp_path):
         tmp_path / "cpu" / step, tmp_path / str(dev) / step, names,
         shallow=False)
     assert mismatch == errors == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [1, 2, 4])
+def test_sharded_update_and_query_on_card_equal_cpu(dev, model):
+    """The sharded build, update and query on a mesh of 4 × the one card
+    (kernels A and B launched per shard) equal the same run on a mesh of
+    4 × the CPU."""
+    from repro_torch.core import shard
+    from repro_torch.core.construct import select_landmarks_by_degree
+    from repro_torch.graphs.coo import apply_batch, from_edges, make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    n = 2000
+    edges = gen.barabasi_albert(n, 3, seed=5)
+    ups = gen.random_batch_updates(edges, n, n_ins=40, n_del=40, seed=6)
+    rng = np.random.default_rng(7)
+    qs = rng.integers(0, n, 37).astype(np.int32)
+    qt = rng.integers(0, n, 37).astype(np.int32)
+    out = []
+    for where in ("cpu", dev):
+        mesh = make_host_mesh(model=model, devices=[where] * 4)
+        g = from_edges(n, edges, len(edges) + 64, device=where)
+        batch = make_batch(ups, pad_to=80, device=where)
+        g1 = apply_batch(g, batch)
+        eng = RelaxEngine(block_v=64, block_e=128, device=where)
+        lm = select_landmarks_by_degree(g, 8)
+        before = (rk.launches, mk.launches)
+        lab = shard.shard_build_labelling(mesh, g, lm, plan=eng.prepare(g))
+        plan1 = eng.prepare(g1)
+        g1, lab1, aff = shard.shard_batchhl_update(mesh, g, batch, lab,
+                                                   plan=plan1, g_new=g1)
+        d = shard.shard_batched_query(
+            mesh, g1, lab1, torch.from_numpy(qs).to(where),
+            torch.from_numpy(qt).to(where), plan=plan1)
+        if where != "cpu":
+            torch.cuda.synchronize()
+            # B once per (data, model) shard of the query; A in every
+            # shard's waves.
+            assert mk.launches == before[1] + 4
+            assert rk.launches > before[0]
+            with pytest.raises(ValueError, match="CPU only"):
+                z = torch.zeros(2, dtype=torch.int32, device=where)
+                shard.shard_batched_query(mesh, g1, lab1, z, z,
+                                          use_kernel=False, plan=plan1)
+        out.append([x.cpu() for x in (lab.dist, lab1.dist, lab1.hub,
+                                      lab1.highway, aff, d)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)

@@ -22,7 +22,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.launch.serve, repro_torch.core.snapshot, "
             "repro_torch.core.growth, repro_torch.checkpoint.manager, "
             "repro_torch.core.autotune, repro_torch.core.directed, "
-            "repro_torch.launch.replica; "
+            "repro_torch.launch.replica, repro_torch.core.shard, "
+            "repro_torch.launch.mesh; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; print(bad)")
@@ -55,6 +56,26 @@ def test_serve_loop_without_device_raises_without_cuda():
         pytest.skip("a CUDA device is present: device=None means the GPU")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeLoop(ServeConfig(n=50, batches=1, quiet=True))
+
+
+def test_mesh_without_device_raises_without_cuda():
+    """A host mesh is of the GPU's devices unless it is given the CPU's,
+    so the sharded entry points and a mesh loop raise without CUDA."""
+    from repro_torch.core.shard import shard_build_labelling
+    from repro_torch.graphs.coo import from_edges
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import ServeConfig, ServeLoop
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the GPU")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
+    g = from_edges(3, np.array([[0, 1], [1, 2]]), 4, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shard_build_labelling(make_host_mesh(), g,
+                              torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeLoop(ServeConfig(n=50, batches=1, mesh="host", quiet=True))
+    assert make_host_mesh(device="cpu").devices == [torch.device("cpu")]
 
 
 def test_checkpoint_restore_without_device_raises_without_cuda(tmp_path):

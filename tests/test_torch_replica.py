@@ -525,17 +525,23 @@ def test_readers_answer_padded_batches_like_the_reference(readers, m):
 
 def test_reader_engine_is_the_serve_loops(tmp_path):
     """A reader builds its engine as the serve loop does (`serve_engine`),
-    without the frontier mode, and raises for the mesh, naming its item."""
+    without the frontier mode, and with mesh="host" its host mesh, whose
+    landmark groupings it validates."""
     spec = ServeSpec(engine=EngineSpec(block_v=128, block_e=64,
                                        frontier=True))
     r = replica._ReaderServer(spec, str(tmp_path), 0, 0, device="cpu")
     r._build_engine()
     assert (r._engine.block_v, r._engine.block_e) == (128, 64)
     assert not r._engine.frontier
+    assert r._mesh is None
     spec = ServeSpec(engine=EngineSpec(mesh="host"))
     r = replica._ReaderServer(spec, str(tmp_path), 0, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        r._build_engine()
+    r._build_engine()
+    assert r._mesh.shape == {"data": 1, "model": 1}
+    with pytest.raises(ValueError, match="must divide the 1 local devices"):
+        replica._ReaderServer(
+            ServeSpec(engine=EngineSpec(mesh="host", shards=2)),
+            str(tmp_path), 0, 0, device="cpu")._build_engine()
 
 
 def test_reader_acks_a_flip_after_older_answers_are_sent(published):
@@ -625,3 +631,33 @@ def test_reader_crash_recovery(tmp_path):
         assert replica.verify_answers(str(tmp_path), report.answers) == 0
     finally:
         topo.stop()
+
+
+def test_tier_serves_on_a_host_mesh(tmp_path):
+    """The tier with mesh="host" on the CPU: the updater's loop and each
+    reader run on their host mesh (1×1 here; the reader's map lines name
+    it), the reader answers through the sharded query, and every answer
+    equals the Dijkstra oracle at the version that served it."""
+    spec = ServeSpec(
+        graph=GraphSpec(n=300, deg=3, landmarks=8),
+        engine=EngineSpec(mesh="host"),
+        stream=StreamSpec(batches=2, batch_size=30, queries=0,
+                          microbatch=16, seed=3, pipeline=True),
+        topology=TopologySpec(readers=1))
+    pub, logs = str(tmp_path / "pub"), str(tmp_path / "logs")
+    os.makedirs(pub)
+    topo = replica.ReplicaTopology(spec, pub, device="cpu", log_dir=logs)
+    try:
+        topo.start()
+        report = replica.stream_queries(spec, topo, total=60, qps=100.0)
+        assert topo.updater_ok() or topo.updater_running()
+        assert len(report.answers) + report.rejected == 60
+        assert len(report.answers) >= 50 and report.max_staleness() <= 1
+        assert replica.verify_answers(pub, report.answers) == 0
+    finally:
+        topo.stop()
+    with open(os.path.join(logs, "reader_0.log")) as fh:
+        maps = [json.loads(line.split("replica map: ", 1)[1])
+                for line in fh if "replica map: " in line]
+    assert maps and all(m["mesh"] == {"data": 1, "model": 1} for m in maps)
+

@@ -32,6 +32,7 @@ from repro_torch.core import query as tq
 from repro_torch.graphs import coo as tcoo
 from repro_torch.launch import config as tconfig
 from repro_torch.launch import serve as tserve
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import ServeConfig, ServeLoop
 
 BASE = dict(n=200, deg=3, landmarks=8, batches=3, batch_size=20, queries=16,
@@ -255,8 +256,15 @@ def test_verify_counts_no_mismatch():
 # --- configuration ----------------------------------------------------------------
 
 def test_unported_settings_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServeLoop(ServeConfig(mesh="host"), device="cpu")
+    # The mesh is ported: mesh="host" shards on the CPU's one device, and
+    # a model axis that does not divide the devices, or an unknown mesh,
+    # raises.
+    loop = ServeLoop(ServeConfig(mesh="host"), device="cpu")
+    assert loop.mesh.shape == {"data": 1, "model": 1}
+    with pytest.raises(ValueError, match="must divide the 1 local devices"):
+        ServeLoop(ServeConfig(mesh="host", shards=2), device="cpu")
+    with pytest.raises(ValueError, match="unknown mesh"):
+        ServeLoop(ServeConfig(mesh="tpu"), device="cpu")
     # The autotuner is ported: both settings reach the engine.
     loop = ServeLoop(ServeConfig(autotune=True), device="cpu")
     assert loop.engine.autotune and loop.engine.tune_count == 0
@@ -326,3 +334,98 @@ def test_cli_verifies_on_the_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "verify: 0/8 mismatches" in out
     assert "serve loop done [backend=plain" in out
+
+
+# --- mesh sharding -----------------------------------------------------------
+
+MESH_BASE = dict(n=300, deg=3, landmarks=8, batches=2, batch_size=30,
+                 queries=48, qps=5000.0, microbatch=8, verify=True,
+                 quiet=True, keep_history=True, block_v=64)
+
+
+def _same_snapshot(got, want):
+    assert (got.version, got.graph.n) == (want.version, want.graph.n)
+    for part, fields in (("graph", ("src", "dst", "valid", "w")),
+                         ("labelling", ("landmarks", "dist", "hub",
+                                        "highway"))):
+        for f in fields:
+            assert torch.equal(getattr(getattr(got, part), f),
+                               getattr(getattr(want, part), f)), (part, f)
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_serve_mesh_host_multidevice(pipeline):
+    """The loop on a prebuilt (data=4, model=2) mesh of 8 CPU shards (the
+    counterpart of `tests/test_shard.py::test_serve_mesh_host_multidevice`
+    and its forced 8 host devices): 0 mismatches against the oracle, and
+    every committed snapshot equals an unsharded loop's."""
+    flat = ServeLoop(ServeConfig(**MESH_BASE, pipeline=pipeline),
+                     device="cpu").run()
+    mesh = make_host_mesh(model=2, devices=["cpu"] * 8)
+    loop = ServeLoop(ServeConfig(**MESH_BASE, pipeline=pipeline,
+                                 mesh="host", shards=2), mesh=mesh)
+    assert loop.mesh is mesh and loop.device == torch.device("cpu")
+    rep = loop.run()
+    assert [t.verify_mismatches for t in rep.ticks] == [0, 0]
+    assert sorted(rep.history) == sorted(flat.history) == [0, 1, 2]
+    for v in rep.history:
+        _same_snapshot(rep.history[v], flat.history[v])
+    assert [t.affected for t in rep.ticks] == \
+        [t.affected for t in flat.ticks]
+    _assert_exact_at_version(rep)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_serve_loop_on_host_mesh_matches_reference(reference, fused):
+    """mesh="host" on the CPU's one device (a 1×1 mesh), pipelined: the
+    committed snapshots are `repro`'s, version by version."""
+    cfg = ServeConfig(**BASE, pipeline=True, fused=fused, mesh="host",
+                      block_v=64)
+    rep = ServeLoop(cfg, device="cpu").run()
+    want = reference["mixed"]
+    for v in want.history:
+        _assert_snapshot(rep.history[v], want.history[v])
+    _assert_exact_at_version(rep)
+
+
+def test_serve_mesh_growth_matches_reference(reference):
+    """The `growth` scenario on a (data=2, model=4) mesh of 8 CPU shards:
+    the grown snapshots go on through the shard twins and commit
+    `repro`'s, version by version, with its growth events."""
+    cfg = ServeConfig(**BASE, **SCENARIOS["growth"], pipeline=True,
+                      block_v=64, mesh="host", shards=4)
+    rep = ServeLoop(cfg, mesh=make_host_mesh(model=4,
+                                             devices=["cpu"] * 8)).run()
+    want = reference["growth"]
+    assert rep.growth and [dataclasses.asdict(e) for e in rep.growth] == \
+        [dataclasses.asdict(e) for e in want.growth]
+    for v in want.history:
+        _assert_snapshot(rep.history[v], want.history[v])
+    _assert_exact_at_version(rep)
+
+
+def test_serve_loop_checks_a_given_mesh():
+    mesh = make_host_mesh(model=2, devices=["cpu"] * 8)
+    with pytest.raises(ValueError, match="model axis is 2, cfg.shards is 4"):
+        ServeLoop(ServeConfig(mesh="host", shards=4), mesh=mesh)
+    with pytest.raises(ValueError, match="cfg.mesh is 'none'"):
+        ServeLoop(ServeConfig(), mesh=mesh)
+    with pytest.raises(ValueError, match="not the loop's device"):
+        ServeLoop(ServeConfig(mesh="host", shards=2), device="meta",
+                  mesh=mesh)
+    with pytest.raises(ValueError, match="failing: maintenance grouping "
+                       "data×model = 4×2 = 8 —"):
+        ServeLoop(ServeConfig(mesh="host", shards=2, landmarks=12),
+                  mesh=mesh)
+
+
+def test_cli_mesh_host_on_the_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--device", "cpu", "--mesh", "host", "--shards", "1",
+        "--n", "120", "--batches", "2", "--batch-size", "10", "--queries",
+        "8", "--pipeline", "--verify"])
+    tserve.main()
+    out = capsys.readouterr().out
+    assert out.count("verify: 0/8 mismatches") == 2
+    assert "mesh data=1 model=1, mode=pipeline]" in out
+

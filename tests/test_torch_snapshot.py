@@ -254,10 +254,15 @@ def test_committed_snapshot_is_never_written(inst, mode):
 
 
 def test_mesh_is_not_ported(inst):
-    gj, labj, bj, _ = inst
+    """`mesh=` runs the chunks' mesh twins: on the CPU's 1×1 host mesh the
+    update equals the unsharded one (every factorisation is in
+    `tests/test_torch_shard_pipeline.py`)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    gj, labj, bj, want = inst
     snap, bt = _port(gj, labj, bj)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsnap.pipelined_update(snap, bt, mesh=object())
+    nxt, aff = tsnap.run_pipelined_update(tsnap.pipelined_update(
+        snap, bt, mesh=make_host_mesh(device="cpu")))
+    _assert_update(nxt, aff, want[True])
 
 
 # --- store and plan cache ------------------------------------------------------
