@@ -128,10 +128,33 @@
    with the host syncs of every step; then `ServeLoop` on the (2, 2) mesh,
    2 ticks of run A's configuration in pipeline mode, whose versions 1
    and 2 equal run A's steps on disk and whose served answers equal the
-   COO path and scipy BFS. Build, update and query-microbatch p50 per
-   mesh beside the unsharded path's with the same plans, kernel A's and
-   B's launches per mesh, peak device memory and the phase's wall time.
-11. Prints a `summary:` line with every number above as JSON, the
+   COO path and scipy BFS. The serve loop's mesh is built by hand,
+   `Mesh([["cuda"] * 2] * 2)`, naming the card without an index. Build,
+   update and query-microbatch p50 per mesh beside the unsharded path's
+   with the same plans, kernel A's and B's launches per mesh, peak device
+   memory and the phase's wall time.
+11. MIND and the training substrate (`models/mind.py`, `train/`), run
+   right after phase 2 while the card is empty. At a medium size (65,536
+   items, the full config's widths, B = 1,024, 25 % of the history
+   masked; params from a seeded CPU generator, copied to the card) the
+   card against the CPU: the loss (rtol 1e-5), the three gradients (atol
+   1e-6), one `adamw_update` on the same inputs with and without int8
+   error feedback (rtol 1e-6, atol 1e-7; the int8 codes equal) and 4
+   train steps each way (losses rtol 1e-5, params atol 2e-5). At full
+   width (`configs/mind.py:model_config`, 10,485,760 × 64 float32,
+   `train_batch` B = 65,536 from `materialize`): init statistics, 8
+   steps of `make_generic_train_step` at lr 3e-3 (finite, the last loss
+   below the first), then 2 with `int8_ef`: step ms (CUDA events, median
+   of steps 2–8), forward + backward ms against the optimiser's ms and
+   its bytes bound, host syncs of step 8 (must be 0), peak device
+   memory. Then `serve_p99`, `serve_bulk` and `retrieval_cand` on the
+   trained params under `torch.no_grad()`: p50 and p99 over 20 calls,
+   users or candidates per second, peak memory, and 8 sampled users' (or
+   the one retrieval user's) scores against a float64 recomputation on
+   the CPU (rtol 1e-4, atol 1e-5). The kernels' launch counts are set
+   to 0 before the phase and must read 0 after it: MIND gathers with
+   `jnp.take`'s rule and launches no hand-written kernel.
+12. Prints a `summary:` line with every number above as JSON, the
    `{"kernels": [...]}` line (kernel A's and B's launches are run A's),
    the card line, and last `{"ok": true, "device": {...}}`.
 
@@ -152,6 +175,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))   # _sweep_cases, kernel A's cases
+# Phase 11's train steps peak at ≈ 64–66 GB in blocks of 17.18 GB ([B, B]
+# float32 at B = 65,536) and 2.68 GB (the table). With fixed segments the
+# caching allocator splits freed 17 GB blocks for table-sized tensors and
+# then cannot place the next [B, B] block (22 GiB cached but unusable in
+# one run); segments that grow in place avoid that. It must be set before
+# CUDA's first allocation, so it holds for every phase and the processes
+# they start. A value already in the environment is kept.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 N = 1 << 20
 BA_M = 4
@@ -1660,7 +1691,7 @@ def run_sharded(torch, np, dev, card, g0, lab0, batch, full, answers, qs,
     from repro_torch.core import query as tq
     from repro_torch.core import shard
     from repro_torch.core import snapshot as tsnap
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
     from repro_torch.launch.serve import ServeConfig, ServeLoop
 
     t_phase = time.perf_counter()
@@ -1771,9 +1802,12 @@ def run_sharded(torch, np, dev, card, g0, lab0, batch, full, answers, qs,
                                   phase="10")}
 
     # The serve loop on the mesh: 2 ticks of run A, held to run A's steps.
+    # The mesh is built by hand and names the card without an index, as a
+    # user would: its grid must resolve to the loop's device.
     cfg = ServeConfig(**{**base, "batches": 2}, pipeline=True,
                       keep_history=True, mesh="host",
                       shards=SHARD_SERVE_MESH[1])
+    mesh = Mesh([["cuda"] * SHARD_SERVE_MESH[1]] * SHARD_SERVE_MESH[0])
     reset_launches()
     rep, wall = timed(lambda: ServeLoop(cfg, mesh=mesh).run())
     row = serve_row(rep, wall)
@@ -1794,7 +1828,8 @@ def run_sharded(torch, np, dev, card, g0, lab0, batch, full, answers, qs,
     row["checked_answers"] = checked
     out["serve"] = row
     pct = row["latency_s"]
-    log(f"phase 10 serve loop on mesh (2, 2) ({card}): {wall:.1f} s; "
+    log(f"phase 10 serve loop on the hand-built {mesh} ({card}): "
+        f"{wall:.1f} s; "
         + "; ".join(f"tick {t['tick']} update {t['update_s']:.3f} s"
                     for t in row["ticks"])
         + f" | latency p50 {pct['p50'] * 1e3:.1f} ms p99 "
@@ -1806,6 +1841,354 @@ def run_sharded(torch, np, dev, card, g0, lab0, batch, full, answers, qs,
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 10 ({card}): {out['wall_s']:.1f} s, peak device memory "
         f"{out['peak_gb']:.2f} GB")
+    return out
+
+
+# --- phase 11: MIND and the training substrate at full width ---------------
+
+MIND_MEDIUM_ITEMS = 65_536
+MIND_MEDIUM_BATCH = 1_024
+MIND_MASKED = 0.25         # share of the medium batch's history masked
+MIND_MEDIUM_STEPS = 4
+MIND_STEPS = 8             # full-width train steps, then the int8_ef ones
+MIND_EF_STEPS = 2
+MIND_LR = 3e-3             # as tests/test_models_smoke.py
+MIND_SERVE_CALLS = 20
+MIND_CHECK_USERS = 8
+MIND_SERVE = ("serve_p99", "serve_bulk", "retrieval_cand")
+#: (rtol, atol) of tests/test_torch_mind.py and tests/test_torch_train.py
+MIND_TOL = {"loss": (1e-5, 0.0), "grad": (0.0, 1e-6), "param": (0.0, 2e-5),
+            "update": (1e-6, 1e-7), "score": (1e-4, 1e-5)}
+#: Params after train steps on the card and on the CPU: a gradient
+#: component a rounding apart can flip the sign of a near-zero Adam step
+#: or move an int8 code (to or from 0), which moves that element by up
+#: to ≈ lr. So at most this share of the elements may lie outside the
+#: "param" tolerance, and none further than 2.5 lr (the bound of
+#: tests/test_train_infra.py::test_microbatch_equals_full_batch). The
+#: share is of all the params' elements together.
+MIND_PARAM_SHARE = 1e-5
+MIND_PARAM_CAP = 2.5 * MIND_LR
+
+
+def mind_loss_grads(torch, mind, params, batch, cfg):
+    """(loss, {name: gradient}) of `train_loss` at `params`."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = mind.train_loss(leaves, batch, cfg)
+    names = sorted(leaves)
+    grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+    return loss.detach(), dict(zip(names, grads))
+
+
+class Held:
+    """Card-against-CPU comparisons: each one's max abs error and its
+    elements outside |got − want| <= atol + rtol·|want| (none allowed,
+    but for "param" see `MIND_PARAM_SHARE`), all logged before the phase
+    fails on any."""
+
+    def __init__(self):
+        self.rows, self.bad = {}, []
+
+    def __call__(self, name: str, got, want, kind: str) -> None:
+        rtol, atol = MIND_TOL[kind]
+        g = got.detach().cpu().double()
+        w = want.detach().cpu().double()
+        diff = (g - w).abs()
+        over = int((diff > atol + rtol * w.abs()).sum()) + int(
+            (g.isnan() != w.isnan()).sum())
+        row = dict(max_abs_err=float(diff.nan_to_num(0).max()),
+                   outside=over, rtol=rtol, atol=atol)
+        if kind == "param":
+            row.update(share=MIND_PARAM_SHARE, cap=MIND_PARAM_CAP)
+            ok = (over <= MIND_PARAM_SHARE * g.numel()
+                  and row["max_abs_err"] <= MIND_PARAM_CAP
+                  and not (g.isnan() != w.isnan()).any())
+        else:
+            ok = not over
+        self.rows[name] = row
+        if not ok:
+            self.bad.append(name)
+
+
+def mind_f64_interests(torch, emb, mask, bilinear, out_proj, cfg):
+    """B2I routing in float64 on the CPU: a plain transcription of the
+    reference's routing, independent of `repro_torch.models.mind`."""
+    u = emb @ bilinear
+    b = torch.zeros(emb.shape[0], cfg.n_interests, emb.shape[1],
+                    dtype=torch.float64)
+    for it in range(cfg.capsule_iters):
+        w = torch.softmax(torch.where(mask[:, None, :], b, -1e9), dim=1)
+        z = torch.einsum("bkl,bld->bkd", w, u)
+        sq = (z * z).sum(-1, keepdim=True)
+        caps = sq / (1 + sq) * z / torch.sqrt(sq + 1e-9)
+        if it < cfg.capsule_iters - 1:
+            b = b + torch.einsum("bkd,bld->bkl", caps, u)
+    return torch.einsum("bkd,de->bke", caps, out_proj)
+
+
+def run_mind(torch, np, dev, card) -> dict:
+    """Phase 11: MIND and the training substrate. The card against the CPU
+    at a medium size; 8 + 2 train steps at full width; the three serve
+    shapes at full width on the trained params, held to float64."""
+    from repro_torch.configs import common
+    from repro_torch.data import synthetic
+    from repro_torch.models import mind
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as tts
+
+    t_phase = time.perf_counter()
+    cfg = common.get_arch("mind").model_config()
+    out: dict = {"card": card}
+
+    # --- the card against the CPU at a medium size --------------------------
+    mcfg = dataclasses.replace(cfg, n_items=MIND_MEDIUM_ITEMS)
+    p_cpu = mind.init_params(mcfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    b_cpu = synthetic.materialize(synthetic.mind_train_layout(
+        MIND_MEDIUM_BATCH, mcfg.hist_len, mcfg.n_items), seed=1,
+        device="cpu")
+    b_cpu["hist_mask"] = torch.from_numpy(np.random.default_rng(2).random(
+        (MIND_MEDIUM_BATCH, mcfg.hist_len)) >= MIND_MASKED)
+
+    def on_card(tree):
+        return {k: on_card(v) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+    p_dev, b_dev = on_card(p_cpu), on_card(b_cpu)
+    held = Held()
+    loss_c, grads_c = mind_loss_grads(torch, mind, p_cpu, b_cpu, mcfg)
+    loss_d, grads_d = mind_loss_grads(torch, mind, p_dev, b_dev, mcfg)
+    held("loss", loss_d, loss_c, "loss")
+    for k in grads_c:
+        held(f"grad {k}", grads_d[k], grads_c[k], "grad")
+    for compress in (None, "int8_ef"):
+        tag = compress or "plain"
+        opt = opt_lib.AdamWConfig(lr=MIND_LR, compress=compress)
+        # One update on the same inputs: the CPU's state after one step
+        # and the CPU's gradients, on both sides.
+        _, st = opt_lib.adamw_update(
+            p_cpu, grads_c, opt_lib.init_opt_state(p_cpu, opt), opt)
+        want_p, want_s = opt_lib.adamw_update(p_cpu, grads_c, st, opt)
+        got_p, got_s = opt_lib.adamw_update(p_dev, on_card(grads_c),
+                                            on_card(st), opt)
+        for k in sorted(p_cpu):
+            held(f"update {tag} param {k}", got_p[k], want_p[k], "update")
+            for part in ("m", "v") + (("ef",) if compress else ()):
+                held(f"update {tag} {part} {k}", got_s[part][k],
+                     want_s[part][k], "update")
+            if compress:
+                gf = grads_c[k] + st["ef"][k]
+                q_c, _ = opt_lib._int8_codes(gf)
+                q_d, _ = opt_lib._int8_codes(gf.to(dev))
+                n = int((q_d.cpu() != q_c).sum())
+                held.rows[f"update {tag} codes {k}"] = dict(differ=n)
+                if n:
+                    held.bad.append(f"update {tag} codes {k}")
+        # Train steps from the same params on each side.
+        step = tts.make_generic_train_step(
+            lambda p, b: mind.train_loss(p, b, mcfg), opt)
+        s_c = tts.init_train_state(p_cpu, opt)
+        s_d = tts.init_train_state(p_dev, opt)
+        for i in range(MIND_MEDIUM_STEPS):
+            s_c, aux_c = step(s_c, b_cpu)
+            s_d, aux_d = step(s_d, b_dev)
+            held(f"steps {tag} loss {i + 1}", aux_d["loss"], aux_c["loss"],
+                 "loss")
+        # All params as one vector: the share is of all their elements.
+        held(f"steps {tag} params", *(torch.cat(
+            [s["params"][k].flatten().cpu() for k in sorted(p_cpu)])
+            for s in (s_d, s_c)), "param")
+        held.rows[f"steps {tag} params"]["max_abs_err_by_param"] = {
+            k: float((s_d["params"][k].cpu() - s_c["params"][k]).abs().max())
+            for k in sorted(p_cpu)}
+        del s_c, s_d
+    out["medium"] = dict(n_items=MIND_MEDIUM_ITEMS, batch=MIND_MEDIUM_BATCH,
+                         masked=MIND_MASKED, steps=MIND_MEDIUM_STEPS,
+                         held=held.rows)
+    worst = {k: v.get("max_abs_err", v.get("differ"))
+             for k, v in held.rows.items()}
+    log(f"phase 11 medium ({MIND_MEDIUM_ITEMS} items, B "
+        f"{MIND_MEDIUM_BATCH}, {MIND_MASKED:.0%} masked), card against the "
+        f"CPU ({card}): max abs errors {worst}")
+    if held.bad:
+        raise AssertionError(f"phase 11: the card disagrees with the CPU on "
+                             f"{held.bad}: {held.rows}")
+    del p_cpu, b_cpu, p_dev, b_dev, grads_c, grads_d
+
+    # --- training at full width ---------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    params = mind.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    std, mean = torch.std_mean(params["item_embed"])
+    init = dict(table_mean=float(mean), table_std=float(std),
+                **{f"{k}_std": float(params[k].std())
+                   for k in ("bilinear", "out_proj")})
+    if abs(init["table_mean"]) > 0.001 or \
+            abs(init["table_std"] - 0.1) > 0.001 or any(
+            abs(init[f"{k}_std"] - 1 / 8) > 0.05 / 8
+            for k in ("bilinear", "out_proj")):
+        raise AssertionError(f"phase 11: init statistics {init}")
+    b_train = common.MIND_SHAPES["train_batch"]["batch"]
+    batch = synthetic.materialize(synthetic.mind_train_layout(
+        b_train, cfg.hist_len, cfg.n_items), seed=3, device=dev)
+
+    opt_events: list = []
+    real_update = opt_lib.adamw_update
+
+    def timed_update(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = real_update(*args, **kw)
+        ev[1].record()
+        opt_events.append(ev)
+        return res
+
+    def train(state, opt, steps: int, count_syncs_at: int):
+        step = tts.make_generic_train_step(
+            lambda p, b: mind.train_loss(p, b, cfg), opt)
+        ev, losses, syncs, before, peak = [], [], None, [], []
+        opt_events.clear()
+        opt_lib.adamw_update = timed_update
+        try:
+            for i in range(steps):
+                torch.cuda.synchronize()
+                before.append(torch.cuda.memory_allocated() / 1e9)
+                torch.cuda.reset_peak_memory_stats()
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                e[0].record()
+                if i + 1 == count_syncs_at:
+                    box = []
+                    syncs = host_syncs(torch, lambda: box.append(
+                        step(state, batch)))
+                    state, aux = box[0]
+                else:
+                    state, aux = step(state, batch)
+                e[1].record()
+                ev.append(e)
+                losses.append(aux["loss"])
+                torch.cuda.synchronize()
+                peak.append(torch.cuda.max_memory_allocated() / 1e9)
+        finally:
+            opt_lib.adamw_update = real_update
+        step_ms = [a.elapsed_time(b) for a, b in ev]
+        opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+        return state, dict(losses=[float(x) for x in losses],
+                           step_ms=step_ms, opt_ms=opt_ms,
+                           host_syncs=syncs, allocated_gb=before,
+                           step_peak_gb=peak, peak_gb=max(peak))
+
+    opt = opt_lib.AdamWConfig(lr=MIND_LR)
+    state, run = train(tts.init_train_state(params, opt), opt, MIND_STEPS,
+                       MIND_STEPS)
+    del params
+    losses = run["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 11: full-width losses {losses}")
+    later = slice(1, None)
+    run["step_ms_p50"] = statistics.median(run["step_ms"][later])
+    run["opt_ms_p50"] = statistics.median(run["opt_ms"][later])
+    run["fwd_bwd_ms_p50"] = statistics.median(
+        s - o for s, o in zip(run["step_ms"][later], run["opt_ms"][later]))
+    # The optimiser's least bytes: p, g, m, v read and p, m, v written.
+    nbytes = 7 * sum(t.numel() * 4 for t in state["params"].values())
+    run["opt_bound_ms"], run["opt_bound_by"] = bound_ms(nbytes, 0)
+    run["opt_bytes"] = nbytes
+    log(f"phase 11 train ({card}): {cfg.n_items} x {cfg.embed_dim} table, "
+        f"B {b_train}, {MIND_STEPS} steps lr {MIND_LR}: losses "
+        f"{[round(x, 5) for x in losses]}; step p50 "
+        f"{run['step_ms_p50']:.2f} ms (fwd+bwd {run['fwd_bwd_ms_p50']:.2f}, "
+        f"optimiser {run['opt_ms_p50']:.2f} ms against a "
+        f"{run['opt_bound_ms']:.2f} ms bound of {nbytes / 1e9:.2f} GB); "
+        f"host syncs in step {MIND_STEPS}: {run['host_syncs']}; peak "
+        f"device memory {run['peak_gb']:.2f} GB (allocated before each "
+        f"step {[round(x, 2) for x in run['allocated_gb']]} GB); init "
+        f"{init}")
+    if run["host_syncs"]:
+        raise AssertionError(f"phase 11: a train step synced the host "
+                             f"{run['host_syncs']} times")
+
+    opt_ef = opt_lib.AdamWConfig(lr=MIND_LR, compress="int8_ef")
+    params = state["params"]
+    del state
+    state, run_ef = train(tts.init_train_state(params, opt_ef), opt_ef,
+                          MIND_EF_STEPS, 0)
+    del params
+    if not all(np.isfinite(run_ef["losses"])):
+        raise AssertionError(f"phase 11: int8_ef losses {run_ef['losses']}")
+    log(f"phase 11 train int8_ef ({card}): {MIND_EF_STEPS} steps: losses "
+        f"{[round(x, 5) for x in run_ef['losses']]}; step ms "
+        f"{[round(x, 2) for x in run_ef['step_ms']]}, optimiser ms "
+        f"{[round(x, 2) for x in run_ef['opt_ms']]}; peak device memory "
+        f"{run_ef['peak_gb']:.2f} GB (allocated before each step "
+        f"{[round(x, 2) for x in run_ef['allocated_gb']]} GB)")
+    out["init"], out["train"], out["train_int8_ef"] = init, run, run_ef
+    params = state["params"]
+    del state, batch
+
+    # --- serving at full width on the trained params ------------------------
+    rng = np.random.default_rng(9)
+    serve = {}
+    cpu_p = {k: params[k].cpu().double() for k in ("bilinear", "out_proj")}
+    for i, name in enumerate(MIND_SERVE):
+        sh = common.MIND_SHAPES[name]
+        if sh["kind"] == "serve":
+            layout = synthetic.mind_serve_layout(
+                sh["batch"], cfg.hist_len, cfg.n_items, sh["n_cands"])
+            fn = mind.serve_scores
+        else:
+            layout = synthetic.mind_retrieval_layout(
+                cfg.hist_len, cfg.n_items, sh["n_cands"])
+            fn = mind.retrieval_scores
+        b = synthetic.materialize(layout, seed=4 + i, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        with torch.no_grad():
+            scores = fn(params, b, cfg)
+            for _ in range(MIND_SERVE_CALLS):
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                e[0].record()
+                fn(params, b, cfg)
+                e[1].record()
+                ms.append(e)
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(c) for a, c in ms]
+        users = (rng.choice(sh["batch"], MIND_CHECK_USERS, replace=False)
+                 if sh["batch"] > 1 else np.zeros(1, np.int64))
+        u = torch.from_numpy(users).to(dev)
+        hist, mask = b["hist"][u].long(), b["hist_mask"][u]
+        cands = b["cands"][u] if sh["kind"] == "serve" else b["cands"]
+        with torch.no_grad():
+            emb = params["item_embed"][hist].cpu().double()
+            cand = params["item_embed"][cands.long()].cpu().double()
+        ints = mind_f64_interests(torch, emb, mask.cpu(), cpu_p["bilinear"],
+                                  cpu_p["out_proj"], cfg)
+        eq = "bkd,bcd->bkc" if sh["kind"] == "serve" else "bkd,cd->bkc"
+        want = torch.einsum(eq, ints, cand).amax(1)
+        got = scores[u] if sh["kind"] == "serve" else scores
+        check = Held()
+        check("scores", got, want, "score")
+        per = (sh["batch"] if sh["kind"] == "serve" else sh["n_cands"])
+        row = dict(batch=sh["batch"], n_cands=sh["n_cands"],
+                   p50_ms=percentile(ms, 0.5), p99_ms=percentile(ms, 0.99),
+                   ms=ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   checked_users=len(users), **check.rows["scores"])
+        row["per_s"] = per / (row["p50_ms"] / 1e3)
+        serve[name] = row
+        unit = "users" if sh["kind"] == "serve" else "candidates"
+        log(f"phase 11 {name} ({card}): B {sh['batch']} x {sh['n_cands']} "
+            f"candidates, {MIND_SERVE_CALLS} calls: p50 {row['p50_ms']:.3f} "
+            f"ms p99 {row['p99_ms']:.3f} ms, {row['per_s']:.4g} {unit}/s, "
+            f"peak device memory {row['peak_gb']:.2f} GB; {len(users)} "
+            f"users against float64, max abs err {row['max_abs_err']:.3g}")
+        if check.bad:
+            raise AssertionError(f"phase 11 {name}: scores != float64 "
+                                 f"({check.rows})")
+        del b, scores, hist, mask, cands, emb, cand
+    out["serve"] = serve
+    del params
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 11 ({card}): {out['wall_s']:.1f} s")
     return out
 
 
@@ -1850,6 +2233,14 @@ def main() -> int:
     cases = check_kernels_small(torch, np, dev)
     log(f"phase 2: {cases} kernel cases equal their plain versions (and "
         "the sorted impl equals kernel A on every relax-sweep case)")
+
+    # --- 11. MIND and the training substrate (first, on the empty card) ------
+    reset_launches()
+    mind_row = run_mind(torch, np, dev, card)
+    mind_row["launches"] = read_launches()
+    if any(mind_row["launches"].values()):
+        raise AssertionError(f"phase 11: MIND launched a hand-written "
+                             f"kernel: {mind_row['launches']}")
 
     # --- 3. the main path ------------------------------------------------------
     t0 = time.perf_counter()
@@ -2125,7 +2516,7 @@ def main() -> int:
         dump_role_logs(REPLICA_DIR / "logs")
         raise
 
-    # --- 11. the kernels line and the summary --------------------------------
+    # --- 12. the kernels line and the summary --------------------------------
     key2_row = sweep_rows[2]
     kernels = [
         dict(name="relax_sweep", route="cuda",
@@ -2174,7 +2565,7 @@ def main() -> int:
                    minplus=mp_rows,
                    frontier=frontier, edge_relax=er_row, embed_bag=bag_rows,
                    serve=serve, directed=directed, autotune=autotune,
-                   replica=replica_tier, sharded=sharded,
+                   replica=replica_tier, sharded=sharded, mind=mind_row,
                    profiler_short_passes=short_passes,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")

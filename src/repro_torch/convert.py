@@ -8,6 +8,10 @@ for the directed variant `DirectedGraph(src, dst, valid, w, n)` and
 JAX array to the host) and builds the port's tensors on `device`; each
 `*_to_numpy` returns the fields in the same order as numpy arrays. Dtypes
 are the reference's: int32 ids, distances and weights, bool flags.
+
+For the models, `params_*` carry any nested dict of arrays (a JAX params
+tree) leaf by leaf with its dtype, and `train_state_*` a train state
+`{"params", "opt": {"m", "v", "step"[, "ef"]}}` (`step` an int32 scalar).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 from repro_torch.core.directed import DirectedGraph, DirectedLabelling
 from repro_torch.core.labelling import HighwayLabelling
 from repro_torch.graphs.coo import BatchUpdate, Graph
+from repro_torch.tree import tree_map
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -87,3 +92,36 @@ def directed_labelling_from_numpy(fwd, bwd, *, device: str | torch.device
 def directed_labelling_to_numpy(lab: DirectedLabelling) -> tuple:
     """((landmarks, dist, hub, highway) of fwd, the same of bwd)."""
     return labelling_to_numpy(lab.fwd), labelling_to_numpy(lab.bwd)
+
+
+def params_from_numpy(tree, *, device: str | torch.device):
+    """A nested dict of array-likes → the same dict of tensors on
+    `device`, each leaf with its own dtype."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def params_to_numpy(tree):
+    """A nested dict of tensors → the same dict of numpy arrays."""
+    return tree_map(_np, tree)
+
+
+def _check_train_state(state) -> None:
+    opt = state["opt"]
+    if set(state) != {"params", "opt"} or not {"m", "v", "step"} <= set(
+            opt) or not set(opt) <= {"m", "v", "step", "ef"}:
+        raise ValueError("a train state is {'params', 'opt': {'m', 'v', "
+                         "'step'[, 'ef']}}")
+
+
+def train_state_from_numpy(state, *, device: str | torch.device) -> dict:
+    """A train state of array-likes (a JAX train state) → the port's."""
+    _check_train_state(state)
+    out = params_from_numpy(state, device=device)
+    out["opt"]["step"] = out["opt"]["step"].to(torch.int32).reshape(())
+    return out
+
+
+def train_state_to_numpy(state) -> dict:
+    """The port's train state → the same dict of numpy arrays."""
+    _check_train_state(state)
+    return params_to_numpy(state)

@@ -8,9 +8,10 @@ raises. They replace the Pallas `_embed_bag_kernel` of
 `repro/kernels/embed_bag/kernel.py`. A table of another float type is
 cast to float32 first, as there.
 
-Indices follow the reference's gather: -N ≤ idx < 0 wraps to idx + N, and
-any other index outside [0, N) contributes a NaN row (so out[b] is NaN
-whatever its weight). The kernel never reads outside the table.
+Indices follow the reference's gather (`repro_torch.gather.take_rows`):
+-N ≤ idx < 0 wraps to idx + N, and any other index outside [0, N)
+contributes a NaN row (so out[b] is NaN whatever its weight). The kernel
+never reads outside the table.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import ctypes
 
 import torch
 
+from repro_torch.gather import take_rows
 from repro_torch.kernels import build
 
 #: Kernel launches since the count was last set to 0 (the CPU path and
@@ -28,12 +30,7 @@ launches = 0
 def embed_bag_plain(table: torch.Tensor, idx: torch.Tensor,
                     w: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: gather the rows, contract the bag axis."""
-    n = table.shape[0]
-    idx = idx.to(torch.int64)
-    idx = torch.where(idx < 0, idx + n, idx)
-    outside = (idx < 0) | (idx >= n)
-    rows = table.to(torch.float32)[idx.clamp(0, max(n - 1, 0))]   # [B, L, D]
-    rows = torch.where(outside[..., None], torch.nan, rows)
+    rows = take_rows(table.to(torch.float32), idx)   # [B, L, D]
     return torch.einsum("bl,bld->bd", w.to(torch.float32), rows)
 
 

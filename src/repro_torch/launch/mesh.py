@@ -23,10 +23,15 @@ AXES = ("data", "model")
 class Mesh:
     """A `(data, model)` grid of devices; `grid[d][m]` is the device of
     shard (d, m). `shape["data"]` and `shape["model"]` read as the
-    reference's `mesh.shape` does."""
+    reference's `mesh.shape` does.
+
+    Each entry is settled as `resolve_device` settles it, so `"cuda"`
+    names the current card with its index and compares equal to the
+    devices of the tensors placed there. An entry of None is refused: a
+    grid names its devices."""
 
     def __init__(self, grid):
-        rows = [tuple(torch.device(x) for x in row) for row in grid]
+        rows = [tuple(_grid_device(x) for x in row) for row in grid]
         if not rows or not rows[0] or any(len(r) != len(rows[0])
                                           for r in rows):
             raise ValueError("a mesh grid needs equal, non-empty rows")
@@ -48,6 +53,12 @@ class Mesh:
                 f"model={self.shape['model']}, devices={self.devices})")
 
 
+def _grid_device(x) -> torch.device:
+    if x is None:
+        raise ValueError("a mesh grid entry must name a device, not None")
+    return resolve_device(x)
+
+
 def make_host_mesh(model: int = 1, *, device=None, devices=None) -> Mesh:
     """Host mesh over the local devices: (data = n // model, model).
 
@@ -62,8 +73,6 @@ def make_host_mesh(model: int = 1, *, device=None, devices=None) -> Mesh:
         devices = ([torch.device("cuda", i)
                     for i in range(torch.cuda.device_count())]
                    if dev.type == "cuda" else [dev])
-    else:
-        devices = [resolve_device(d) for d in devices]
     n = len(devices)
     if model < 1 or n % model:
         raise ValueError(

@@ -23,7 +23,10 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.core.growth, repro_torch.checkpoint.manager, "
             "repro_torch.core.autotune, repro_torch.core.directed, "
             "repro_torch.launch.replica, repro_torch.core.shard, "
-            "repro_torch.launch.mesh; "
+            "repro_torch.launch.mesh, repro_torch.models.mind, "
+            "repro_torch.train.optimizer, repro_torch.train.train_step, "
+            "repro_torch.configs.common, repro_torch.configs.mind, "
+            "repro_torch.data.synthetic; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; print(bad)")
@@ -76,6 +79,25 @@ def test_mesh_without_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeLoop(ServeConfig(n=50, batches=1, mesh="host", quiet=True))
     assert make_host_mesh(device="cpu").devices == [torch.device("cpu")]
+
+
+def test_mind_init_and_materialize_without_device_raise_without_cuda():
+    """MIND's params and batches are made on the GPU unless they are
+    given the CPU."""
+    from repro_torch.configs import common
+    from repro_torch.data import synthetic
+    from repro_torch.models import mind
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the GPU")
+    cfg = common.get_arch("mind").reduced_config()
+    layout = synthetic.mind_train_layout(4, cfg.hist_len, cfg.n_items)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mind.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic.materialize(layout)
+    assert mind.init_params(cfg, device="cpu")["item_embed"].device == \
+        synthetic.materialize(layout, device="cpu")["hist"].device == \
+        torch.device("cpu")
 
 
 def test_checkpoint_restore_without_device_raises_without_cuda(tmp_path):

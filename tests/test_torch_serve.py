@@ -32,7 +32,7 @@ from repro_torch.core import query as tq
 from repro_torch.graphs import coo as tcoo
 from repro_torch.launch import config as tconfig
 from repro_torch.launch import serve as tserve
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.launch.serve import ServeConfig, ServeLoop
 
 BASE = dict(n=200, deg=3, landmarks=8, batches=3, batch_size=20, queries=16,
@@ -417,6 +417,22 @@ def test_serve_loop_checks_a_given_mesh():
                        "data×model = 4×2 = 8 —"):
         ServeLoop(ServeConfig(mesh="host", shards=2, landmarks=12),
                   mesh=mesh)
+
+
+@pytest.mark.cuda
+def test_serve_loop_on_a_prebuilt_cuda_mesh():
+    """A hand-built mesh that names the card without an index,
+    `Mesh([["cuda"] * 4])`, is the loop's device mesh: the loop resolves
+    to the same indexed card and serves on it with 0 mismatches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the loop runs the kernels there")
+    mesh = Mesh([["cuda"] * 4])
+    loop = ServeLoop(ServeConfig(**MESH_BASE, pipeline=True, mesh="host",
+                                 shards=4), mesh=mesh)
+    assert loop.mesh is mesh and mesh.first == loop.device == \
+        torch.device("cuda", torch.cuda.current_device())
+    rep = loop.run()
+    assert [t.verify_mismatches for t in rep.ticks] == [0, 0]
 
 
 def test_cli_mesh_host_on_the_cpu(monkeypatch, capsys):

@@ -258,6 +258,24 @@ def test_mesh_grid_and_shard_placement():
         Mesh([["cpu"], ["cpu", "cpu"]])
 
 
+def test_mesh_grid_names_cards_by_index(monkeypatch):
+    """A grid entry "cuda" is settled to the current card with its index,
+    as `make_host_mesh` settles its devices, so a prebuilt mesh's first
+    device equals the serve loop's resolved device. Repeats and CPU grids
+    stay as they are; an entry of None names no device and is refused."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    mesh = Mesh([["cuda"] * 2])
+    assert mesh.first == torch.device("cuda", 0)
+    assert mesh.devices == [torch.device("cuda", 0)] * 2
+    assert Mesh([["cuda:1", "cuda"]]).devices == \
+        [torch.device("cuda", 1), torch.device("cuda", 0)]
+    assert Mesh([["cpu"] * 4] * 2).devices == [torch.device("cpu")] * 8
+    with pytest.raises(ValueError, match="not None"):
+        Mesh([["cpu", None]])
+    with pytest.raises(ValueError, match="not None"):
+        make_host_mesh(devices=[None])
+
+
 # --- queries: padding and the per-data-shard BiBFS ---------------------------
 
 @pytest.mark.parametrize("data", [2, 4, 8])
