@@ -154,7 +154,36 @@
    the CPU (rtol 1e-4, atol 1e-5). The kernels' launch counts are set
    to 0 before the phase and must read 0 after it: MIND gathers with
    `jnp.take`'s rule and launches no hand-written kernel.
-12. Prints a `summary:` line with every number above as JSON, the
+12. The GNN family (`models/gnn.py`) and the neighbour sampler
+   (`graphs/sampler.py`). a/b run right after phase 11, while the card is
+   empty: b first, each arch (`configs/{schnet,dimenet,mace,
+   graphcast}.py:model_config`) at full width on the `molecule` batch of
+   the reference's `gnn_cell` with params from a seeded CPU generator
+   copied to the card, the card against the CPU: forward, loss and every
+   gradient within 1e-4 of the tensor's largest |value| (GraphCast's
+   gradients within 1e-3: float32 rounding through its 16 layers), and
+   MACE's outputs under a seeded QR rotation of the positions within 1e-4;
+   then a, for each arch on `minibatch_lg` (169,984 nodes, 337,920 directed
+   edges, d_in 602) and `molecule` (4,096 / 16,384 / 16, 128 graphs), drawn
+   by `materialize(gnn_layout(...), seed 0)`: init statistics, 8 steps of
+   `make_generic_train_step` at lr 1e-3 (finite, the last loss below the
+   first; for GraphCast, whose loss at full width need not fall at this
+   rate in the reference either, instead the first loss equal to the CPU's
+   within 1e-4), step ms (CUDA events, median of steps 2–8), forward +
+   backward ms against the optimiser's ms and its bytes bound, host syncs
+   of step 8 (must be 0), peak device memory. DimeNet runs on
+   `full_graph_sm` instead if `minibatch_lg` runs out of memory, and the
+   log says so. c runs after phase 4, on phase 3's graph: `build_csr` of
+   BA(2^20, 4) (seconds), `sample_subgraph` from 1,024 seeds with fanouts
+   (15, 10), which gives `minibatch_lg`'s 169,984 nodes and 168,960 sampled
+   edges, uniform and biased by closeness to the landmarks (−min over
+   landmarks of phase 3's post-update `lab.dist`): every masked-in
+   neighbour an edge of the CSR, the shapes static, the masks right, ms per
+   call, host syncs, and the biased samples' mean landmark distance no
+   larger than the uniform ones'. The kernels' launch counts are set to 0
+   before a/b and before c and must read 0 after each: no GNN module or
+   sampler launches a hand-written kernel.
+13. Prints a `summary:` line with every number above as JSON, the
    `{"kernels": [...]}` line (kernel A's and B's launches are run A's),
    the card line, and last `{"ok": true, "device": {...}}`.
 
@@ -1925,6 +1954,57 @@ def mind_f64_interests(torch, emb, mask, bilinear, out_proj, cfg):
     return torch.einsum("bkd,de->bke", caps, out_proj)
 
 
+def timed_train(torch, loss_fn, state, batch, opt, steps: int,
+                count_syncs_at: int):
+    """`steps` steps of `make_generic_train_step(loss_fn, opt)` from
+    `state` on `batch`: (state, {losses, step_ms and opt_ms by CUDA
+    events, host syncs of step `count_syncs_at` (None for 0), allocated
+    GB before each step, each step's peak GB and their max})."""
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as tts
+    opt_events: list = []
+    real_update = opt_lib.adamw_update
+
+    def timed_update(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = real_update(*args, **kw)
+        ev[1].record()
+        opt_events.append(ev)
+        return res
+
+    step = tts.make_generic_train_step(loss_fn, opt)
+    ev, losses, syncs, before, peak = [], [], None, [], []
+    opt_lib.adamw_update = timed_update
+    try:
+        for i in range(steps):
+            torch.cuda.synchronize()
+            before.append(torch.cuda.memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            if i + 1 == count_syncs_at:
+                box = []
+                syncs = host_syncs(torch, lambda: box.append(
+                    step(state, batch)))
+                state, aux = box[0]
+            else:
+                state, aux = step(state, batch)
+            e[1].record()
+            ev.append(e)
+            losses.append(aux["loss"])
+            torch.cuda.synchronize()
+            peak.append(torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        opt_lib.adamw_update = real_update
+    step_ms = [a.elapsed_time(b) for a, b in ev]
+    opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+    return state, dict(losses=[float(x) for x in losses],
+                       step_ms=step_ms, opt_ms=opt_ms,
+                       host_syncs=syncs, allocated_gb=before,
+                       step_peak_gb=peak, peak_gb=max(peak))
+
+
 def run_mind(torch, np, dev, card) -> dict:
     """Phase 11: MIND and the training substrate. The card against the CPU
     at a medium size; 8 + 2 train steps at full width; the three serve
@@ -2031,50 +2111,9 @@ def run_mind(torch, np, dev, card) -> dict:
     batch = synthetic.materialize(synthetic.mind_train_layout(
         b_train, cfg.hist_len, cfg.n_items), seed=3, device=dev)
 
-    opt_events: list = []
-    real_update = opt_lib.adamw_update
-
-    def timed_update(*args, **kw):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        res = real_update(*args, **kw)
-        ev[1].record()
-        opt_events.append(ev)
-        return res
-
     def train(state, opt, steps: int, count_syncs_at: int):
-        step = tts.make_generic_train_step(
-            lambda p, b: mind.train_loss(p, b, cfg), opt)
-        ev, losses, syncs, before, peak = [], [], None, [], []
-        opt_events.clear()
-        opt_lib.adamw_update = timed_update
-        try:
-            for i in range(steps):
-                torch.cuda.synchronize()
-                before.append(torch.cuda.memory_allocated() / 1e9)
-                torch.cuda.reset_peak_memory_stats()
-                e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                e[0].record()
-                if i + 1 == count_syncs_at:
-                    box = []
-                    syncs = host_syncs(torch, lambda: box.append(
-                        step(state, batch)))
-                    state, aux = box[0]
-                else:
-                    state, aux = step(state, batch)
-                e[1].record()
-                ev.append(e)
-                losses.append(aux["loss"])
-                torch.cuda.synchronize()
-                peak.append(torch.cuda.max_memory_allocated() / 1e9)
-        finally:
-            opt_lib.adamw_update = real_update
-        step_ms = [a.elapsed_time(b) for a, b in ev]
-        opt_ms = [a.elapsed_time(b) for a, b in opt_events]
-        return state, dict(losses=[float(x) for x in losses],
-                           step_ms=step_ms, opt_ms=opt_ms,
-                           host_syncs=syncs, allocated_gb=before,
-                           step_peak_gb=peak, peak_gb=max(peak))
+        return timed_train(torch, lambda p, b: mind.train_loss(p, b, cfg),
+                           state, batch, opt, steps, count_syncs_at)
 
     opt = opt_lib.AdamWConfig(lr=MIND_LR)
     state, run = train(tts.init_train_state(params, opt), opt, MIND_STEPS,
@@ -2192,6 +2231,340 @@ def run_mind(torch, np, dev, card) -> dict:
     return out
 
 
+# --- phase 12: the GNN family and the neighbour sampler ----------------------
+
+GNN_ARCHS = ("schnet", "dimenet", "mace", "graphcast")
+GNN_RUN_SHAPES = ("minibatch_lg", "molecule")
+GNN_FALLBACK_SHAPE = "full_graph_sm"   # DimeNet's, should minibatch_lg not fit
+GNN_STEPS = 8
+GNN_LR = 1e-3              # tests/test_models_smoke.py::test_gnn_smoke_train
+#: Card against CPU at full width on `molecule`: max |card − CPU| over the
+#: tensor's largest |CPU value|, for the forward output and each gradient,
+#: and the loss's relative error. Float32 sums over widths up to 1,536 in
+#: another order (cuBLAS; the card's scatter-add atomics): ≈ 1e-6–1e-5
+#: expected, 10× that allowed.
+GNN_CARD_TOL = 1e-4
+#: GraphCast's gradients: its 16 layers at outputs of ≈ 1e6–1e7 amplify
+#: float32 rounding. On the CPU alone its float32 gradients lie up to
+#: 2.4e-4 of a leaf's largest |value| from a float64 recomputation (the
+#: other archs' within 5e-6), and the card's rounding is as large; the
+#: first chip run measured 5.2e-4 between the two.
+GNN_GRAD_TOL = {"graphcast": 1e-3}
+#: MACE's outputs after a rotation of the positions, over their largest
+#: |value| (the reference test's 1e-4).
+GNN_ROTATION_TOL = 1e-4
+#: Archs whose loss need not fall at lr 1e-3 at full width: GraphCast's
+#: 16 residual sum-aggregation layers of width 512 (no normalisation, as
+#: in the reference) give outputs of ≈ 1e6–1e7 at init, and 8 AdamW steps
+#: then drive the loss up or down with the init, in `repro` as in the
+#: port (tests/test_torch_gnn.py::test_graphcast_full_width_diverges_as_
+#: reference). Their losses must stay finite and the first must equal the
+#: CPU's on the same params and batch within `GNN_CARD_TOL`.
+GNN_UNSTABLE = {"graphcast"}
+SAMPLER_SEEDS = 1024
+SAMPLER_FANOUTS = (15, 10)
+SAMPLER_CALLS = 20
+
+
+def gnn_cell_batch(torch, cfg, shape: str, dev):
+    """(config, batch) of the reference's `gnn_cell` for `shape`
+    (`src/repro/configs/common.py:163-190`): `d_in` set to the shape's
+    `d_feat`, the padded sizes, `tri_cap` = min(4 e2, 2^27), drawn by
+    `materialize(..., seed 0)`."""
+    from repro_torch.configs import common
+    from repro_torch.data import synthetic
+    sh = common.GNN_SHAPES[shape]
+    cfg = dataclasses.replace(cfg, d_in=sh["d_feat"])
+    e2 = sh["e2_pad"]
+    layout = synthetic.gnn_layout(cfg.arch, sh["n_pad"], e2, sh["d_feat"],
+                                  cfg.d_out, n_graphs=sh.get("n_graphs"),
+                                  tri_cap=min(4 * e2, 1 << 27))
+    return cfg, synthetic.materialize(layout, seed=0, device=dev)
+
+
+def scaled_err(got, want) -> float:
+    """max |got − want| over the largest |want|."""
+    g, w = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def gnn_loss_grads(torch, gnn, params, batch, cfg):
+    """(forward output, loss, gradients in the tree's leaf order)."""
+    from repro_torch.tree import tree_leaves, tree_map
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.no_grad():
+        out = gnn.forward(leaves, batch, cfg)
+    loss = gnn.loss_fn(leaves, batch, cfg)
+    grads = torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=True,
+                                materialize_grads=True)
+    return out, loss.detach(), grads
+
+
+def gnn_init_stats(torch, params) -> dict:
+    """Weights times √fan_in (mean ≈ 0, std ≈ 1) and the largest |bias|
+    (0)."""
+    from repro_torch.tree import tree_leaves
+    z, bias = [], 0.0
+    for t in tree_leaves(params):
+        if t.dim() == 1:
+            bias = max(bias, float(t.abs().max()))
+        else:
+            fan_in = t.shape[-1] if t.dim() == 3 else t.shape[0]
+            z.append(t.flatten().float() * fan_in ** 0.5)
+    z = torch.cat(z)
+    return dict(weights=z.numel(), z_mean=float(z.mean()),
+                z_std=float(z.std()), max_abs_bias=bias)
+
+
+def gnn_card_vs_cpu(torch, np, dev, card) -> dict:
+    """Phase 12b: each arch at full width on `molecule`, params from a
+    seeded CPU generator copied to the card: forward, loss and every
+    gradient against the CPU's; MACE's outputs under a rotation."""
+    from repro_torch.configs import common
+    from repro_torch.models import gnn
+    from repro_torch.tree import tree_map
+    rows, bad = {}, []
+    for arch in GNN_ARCHS:
+        cfg, b_cpu = gnn_cell_batch(torch, common.get_arch(arch)
+                                    .model_config(), "molecule", "cpu")
+        p_cpu = gnn.init_params(
+            cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+        b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+        o_c, l_c, g_c = gnn_loss_grads(torch, gnn, p_cpu, b_cpu, cfg)
+        o_d, l_d, g_d = gnn_loss_grads(torch, gnn, p_dev, b_dev, cfg)
+        used = [(a, c) for a, c in zip(g_d, g_c) if c.abs().max() > 0]
+        row = dict(forward=scaled_err(o_d, o_c),
+                   loss=abs(float(l_d) - float(l_c)) / abs(float(l_c)),
+                   grad=max(scaled_err(a, c) for a, c in used),
+                   leaves=len(g_c), zero_grad_leaves=len(g_c) - len(used),
+                   zero_grads_equal=all(not a.any() for a, c in
+                                        zip(g_d, g_c) if not c.any()))
+        row["grad_tol"] = GNN_GRAD_TOL.get(arch, GNN_CARD_TOL)
+        ok = max(row["forward"], row["loss"]) <= GNN_CARD_TOL \
+            and row["grad"] <= row["grad_tol"] and row["zero_grads_equal"]
+        if arch == "mace":
+            q, _ = np.linalg.qr(np.random.default_rng(3).normal(size=(3, 3)))
+            if np.linalg.det(q) < 0:
+                q[:, 0] *= -1
+            rot = dict(b_dev)
+            rot["positions"] = b_dev["positions"] @ torch.from_numpy(
+                q.astype(np.float32)).to(dev)
+            with torch.no_grad():
+                row["rotation"] = scaled_err(gnn.forward(p_dev, rot, cfg),
+                                             o_d)
+            ok = ok and row["rotation"] <= GNN_ROTATION_TOL
+        rows[arch] = row
+        if not ok:
+            bad.append(arch)
+    log(f"phase 12b ({card}): card against the CPU at full width on "
+        f"molecule (max error over the largest |value|, limit "
+        f"{GNN_CARD_TOL}, GraphCast's gradients {GNN_GRAD_TOL['graphcast']};"
+        f" MACE's rotation, limit {GNN_ROTATION_TOL}): "
+        f"{rows}")
+    if bad:
+        raise AssertionError(f"phase 12b: the card disagrees with the CPU "
+                             f"(or MACE with its rotation) on {bad}")
+    return rows
+
+
+def gnn_train(torch, np, dev, card, arch: str, shape: str) -> dict:
+    """Phase 12a for one (arch, shape): init statistics, then `GNN_STEPS`
+    steps at full width. Fails on bad init statistics, non-finite or
+    non-falling losses (for `GNN_UNSTABLE`, a first loss off the CPU's),
+    or a host sync in the last step."""
+    from repro_torch.configs import common
+    from repro_torch.models import gnn
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as tts
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, batch = gnn_cell_batch(torch, common.get_arch(arch).model_config(),
+                                shape, dev)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    params = gnn.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    init = gnn_init_stats(torch, params)
+    if abs(init["z_mean"]) > 0.01 or abs(init["z_std"] - 1) > 0.01 or \
+            init["max_abs_bias"] != 0:
+        raise AssertionError(f"phase 12 {arch} {shape}: init statistics "
+                             f"{init}")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    unstable = arch in GNN_UNSTABLE
+    if unstable:
+        # The CPU's loss at the init params, for the first step's loss.
+        with torch.no_grad():
+            cpu_loss = float(gnn.loss_fn(
+                tree_map(lambda t: t.cpu(), params),
+                {k: v.cpu() for k, v in batch.items()}, cfg))
+    opt = opt_lib.AdamWConfig(lr=GNN_LR)
+    state, run = timed_train(torch, lambda p, b: gnn.loss_fn(p, b, cfg),
+                             tts.init_train_state(params, opt), batch, opt,
+                             GNN_STEPS, GNN_STEPS)
+    del params, state, batch
+    later = slice(1, None)
+    # The optimiser's least bytes: p, g, m, v read and p, m, v written.
+    nbytes = 7 * 4 * n_params
+    run.update(shape=shape, data_s=data_s, init=init, n_params=n_params,
+               step_ms_p50=statistics.median(run["step_ms"][later]),
+               opt_ms_p50=statistics.median(run["opt_ms"][later]),
+               fwd_bwd_ms_p50=statistics.median(
+                   s - o for s, o in zip(run["step_ms"][later],
+                                         run["opt_ms"][later])),
+               opt_bytes=nbytes)
+    run["opt_bound_ms"], run["opt_bound_by"] = bound_ms(nbytes, 0)
+    sh = common.GNN_SHAPES[shape]
+    losses = run["losses"]
+    log(f"phase 12 train {arch} {shape} ({card}): {sh['n_pad']} nodes, "
+        f"{sh['e2_pad']} edges, d_in {cfg.d_in}, {n_params} params; "
+        f"{GNN_STEPS} steps lr {GNN_LR}: losses "
+        f"{[float(f'{x:.6g}') for x in losses]}; step p50 "
+        f"{run['step_ms_p50']:.2f} ms (fwd+bwd {run['fwd_bwd_ms_p50']:.2f}, "
+        f"optimiser {run['opt_ms_p50']:.3f} ms against a "
+        f"{run['opt_bound_ms']:.4f} ms bound); host syncs in step "
+        f"{GNN_STEPS}: {run['host_syncs']}; peak device memory "
+        f"{run['peak_gb']:.2f} GB; batch drawn in {data_s:.1f} s; init "
+        f"{init}")
+    if unstable:
+        run["cpu_first_loss"] = cpu_loss
+        run["first_loss_err"] = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+        log(f"phase 12 train {arch} {shape}: the loss "
+            f"{'falls' if losses[-1] < losses[0] else 'rises'} (need not "
+            f"fall at this width, in the reference too); first loss "
+            f"{losses[0]:.8g} against the CPU's {cpu_loss:.8g} (relative "
+            f"{run['first_loss_err']:.3g}, limit {GNN_CARD_TOL})")
+        ok = run["first_loss_err"] <= GNN_CARD_TOL
+    else:
+        ok = losses[-1] < losses[0]
+    if not all(np.isfinite(losses)) or not ok:
+        raise AssertionError(f"phase 12 {arch} {shape}: losses {losses}")
+    if run["host_syncs"]:
+        raise AssertionError(f"phase 12 {arch} {shape}: a train step synced "
+                             f"the host {run['host_syncs']} times")
+    return run
+
+
+def run_gnn(torch, np, dev, card) -> dict:
+    """Phase 12a/b: the card against the CPU, then every (arch, shape)'s
+    train steps. DimeNet runs on `GNN_FALLBACK_SHAPE` if `minibatch_lg`
+    runs out of memory (logged as a cut)."""
+    t_phase = time.perf_counter()
+    out = {"card": card, "card_vs_cpu": gnn_card_vs_cpu(torch, np, dev, card),
+           "train": {}}
+    for arch in GNN_ARCHS:
+        for shape in GNN_RUN_SHAPES:
+            torch.cuda.empty_cache()
+            try:
+                row = gnn_train(torch, np, dev, card, arch, shape)
+            except torch.cuda.OutOfMemoryError as e:
+                if (arch, shape) != ("dimenet", "minibatch_lg"):
+                    raise
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                log(f"CUT: phase 12 dimenet on minibatch_lg ran out of "
+                    f"memory (peak {peak:.2f} GB; {str(e).splitlines()[0]});"
+                    f" it runs on {GNN_FALLBACK_SHAPE} instead")
+                del e
+                torch.cuda.empty_cache()
+                row = gnn_train(torch, np, dev, card, arch, GNN_FALLBACK_SHAPE)
+                row["cut"] = dict(shape=shape, oom_peak_gb=peak)
+            out["train"][f"{arch} {row['shape']}"] = row
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 12a/b ({card}): {out['wall_s']:.1f} s")
+    return out
+
+
+def run_sampler(torch, np, dev, card, edges, lab) -> dict:
+    """Phase 12c: `build_csr` of phase 3's graph and `sample_subgraph`
+    from `SAMPLER_SEEDS` seeds with `SAMPLER_FANOUTS`, uniform and biased
+    by closeness to the landmarks (−min over landmarks of `lab.dist`, the
+    prior of `examples/gnn_demo.py:46-55`). Every masked-in neighbour must
+    be an edge of the CSR, the shapes `minibatch_lg`'s, the masks right,
+    and the biased samples no farther from the landmarks on average."""
+    from repro_torch.configs import common
+    from repro_torch.graphs import sampler
+    from repro_torch.graphs.coo import INF_D
+    t_phase = time.perf_counter()
+    n = lab.dist.shape[1]
+    t0 = time.perf_counter()
+    csr = sampler.build_csr(n, edges, device=dev)
+    torch.cuda.synchronize()
+    out = {"card": card, "build_csr_s": time.perf_counter() - t0,
+           "seeds": SAMPLER_SEEDS, "fanouts": list(SAMPLER_FANOUTS)}
+    # The CSR's edges as sorted keys u·n + v, for the membership check.
+    deg = (csr.indptr[1:] - csr.indptr[:-1]).long()
+    keys = torch.sort(torch.repeat_interleave(
+        torch.arange(n, device=dev), deg) * n + csr.indices.long()).values
+    seeds = torch.from_numpy(np.random.default_rng(12).choice(
+        n, SAMPLER_SEEDS, replace=False).astype(np.int32)).to(dev)
+    near = lab.dist.min(0).values
+    closeness = -near.float()
+    sh = common.GNN_SHAPES["minibatch_lg"]
+    for name, bias in (("uniform", None), ("biased", closeness)):
+        layers, (src, dst, mask) = sampler.sample_subgraph(
+            csr, seeds, SAMPLER_FANOUTS,
+            torch.Generator(device=dev).manual_seed(0), bias)
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def call():
+            return sampler.sample_subgraph(csr, seeds, SAMPLER_FANOUTS, gen,
+                                           bias)
+        ms = cuda_ms(call, SAMPLER_CALLS)
+        syncs = host_syncs(torch, call)
+        nodes = sum(int(l[0].numel()) for l in layers)
+        width, want_shapes = SAMPLER_SEEDS, []
+        for f in (1,) + SAMPLER_FANOUTS:
+            width *= f
+            want_shapes.append((width,))
+        shapes_ok = (
+            [tuple(l[0].shape) for l in layers] == want_shapes
+            and [tuple(l[1].shape) for l in layers] == want_shapes
+            and src.shape == dst.shape == mask.shape
+            == (sum(w[0] for w in want_shapes[1:]),))
+        # Masks: hop h's entry is set iff its parent was and has an edge.
+        masks_ok, parent, parent_mask = True, seeds, layers[0][1]
+        for (nodes_h, mask_h), f in zip(layers[1:], SAMPLER_FANOUTS):
+            want = ((deg[parent.long()] > 0) & parent_mask)[:, None] \
+                .expand(-1, f).reshape(-1)
+            masks_ok &= bool(torch.equal(mask_h, want)) and \
+                not bool(nodes_h[~mask_h].any())
+            parent, parent_mask = nodes_h, mask_h
+        q = dst.long() * n + src.long()
+        at = torch.searchsorted(keys, q).clamp_max(keys.numel() - 1)
+        not_edges = int((mask & (keys[at] != q)).sum())
+        d = near[src[mask].long()].double()
+        row = dict(ms=ms, host_syncs=syncs, nodes=nodes,
+                   edges=int(src.numel()), masked_in=int(mask.sum()),
+                   not_edges=not_edges, shapes_ok=shapes_ok,
+                   masks_ok=masks_ok,
+                   mean_landmark_dist=float(d.mean()),
+                   unreachable=int((d >= INF_D).sum()))
+        out[name] = row
+        log(f"phase 12c sampler {name} ({card}): {SAMPLER_SEEDS} seeds, "
+            f"fanouts {SAMPLER_FANOUTS}: {nodes} nodes, {row['edges']} "
+            f"sampled edges ({row['masked_in']} masked in, {not_edges} not "
+            f"an edge of the CSR); shapes {'static' if shapes_ok else 'WRONG'}"
+            f", masks {'right' if masks_ok else 'WRONG'}; {ms:.3f} ms per "
+            f"call ({SAMPLER_CALLS} calls, CUDA events), {syncs} host syncs;"
+            f" mean landmark distance {row['mean_landmark_dist']:.4f}")
+        if not (shapes_ok and masks_ok and not not_edges
+                and nodes == sh["n_nodes"] and row["edges"] == sh["n_edges"]):
+            raise AssertionError(f"phase 12c: sampler {name}: {row}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 12c ({card}): build_csr of {n} vertices and "
+        f"{2 * len(edges)} directed edges {out['build_csr_s']:.2f} s; mean "
+        f"landmark distance biased {out['biased']['mean_landmark_dist']:.4f}"
+        f" against uniform {out['uniform']['mean_landmark_dist']:.4f}; "
+        f"phase {out['wall_s']:.1f} s")
+    if out["biased"]["mean_landmark_dist"] > \
+            out["uniform"]["mean_landmark_dist"]:
+        raise AssertionError("phase 12c: the biased samples lie farther from "
+                             "the landmarks than the uniform ones")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2241,6 +2614,14 @@ def main() -> int:
     if any(mind_row["launches"].values()):
         raise AssertionError(f"phase 11: MIND launched a hand-written "
                              f"kernel: {mind_row['launches']}")
+
+    # --- 12a/b. the GNN family (next, while the card is empty) ---------------
+    reset_launches()
+    gnn_row = run_gnn(torch, np, dev, card)
+    gnn_row["launches"] = read_launches()
+    if any(gnn_row["launches"].values()):
+        raise AssertionError(f"phase 12a/b: a GNN launched a hand-written "
+                             f"kernel: {gnn_row['launches']}")
 
     # --- 3. the main path ------------------------------------------------------
     t0 = time.perf_counter()
@@ -2343,6 +2724,14 @@ def main() -> int:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     log(f"phase 4d: launches on the main path {launches}")
+
+    # --- 12c. the neighbour sampler on phase 3's graph -----------------------
+    reset_launches()
+    sampler_row = run_sampler(torch, np, dev, card, edges, lab1)
+    sampler_row["launches"] = read_launches()
+    if any(sampler_row["launches"].values()):
+        raise AssertionError(f"phase 12c: the sampler launched a hand-written"
+                             f" kernel: {sampler_row['launches']}")
 
     # --- 3b. the same tick in the frontier mode ------------------------------
     trickle = coo.make_batch(gen.random_batch_updates(
@@ -2516,7 +2905,7 @@ def main() -> int:
         dump_role_logs(REPLICA_DIR / "logs")
         raise
 
-    # --- 12. the kernels line and the summary --------------------------------
+    # --- 13. the kernels line and the summary --------------------------------
     key2_row = sweep_rows[2]
     kernels = [
         dict(name="relax_sweep", route="cuda",
@@ -2566,6 +2955,7 @@ def main() -> int:
                    frontier=frontier, edge_relax=er_row, embed_bag=bag_rows,
                    serve=serve, directed=directed, autotune=autotune,
                    replica=replica_tier, sharded=sharded, mind=mind_row,
+                   gnn=gnn_row, sampler=sampler_row,
                    profiler_short_passes=short_passes,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")

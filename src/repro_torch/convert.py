@@ -9,8 +9,9 @@ JAX array to the host) and builds the port's tensors on `device`; each
 `*_to_numpy` returns the fields in the same order as numpy arrays. Dtypes
 are the reference's: int32 ids, distances and weights, bool flags.
 
-For the models, `params_*` carry any nested dict of arrays (a JAX params
-tree) leaf by leaf with its dtype, and `train_state_*` a train state
+For the models, `params_*` carry any nested dict or list of arrays (a JAX
+params tree; `repro_torch.tree` says which nodes there are) leaf by leaf
+with its dtype, and `train_state_*` a train state
 `{"params", "opt": {"m", "v", "step"[, "ef"]}}` (`step` an int32 scalar).
 """
 from __future__ import annotations
@@ -95,13 +96,14 @@ def directed_labelling_to_numpy(lab: DirectedLabelling) -> tuple:
 
 
 def params_from_numpy(tree, *, device: str | torch.device):
-    """A nested dict of array-likes → the same dict of tensors on
-    `device`, each leaf with its own dtype."""
+    """Nested dicts and lists of array-likes → the same tree of tensors
+    on `device`, each leaf with its own dtype."""
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
 
 
 def params_to_numpy(tree):
-    """A nested dict of tensors → the same dict of numpy arrays."""
+    """Nested dicts and lists of tensors → the same tree of numpy
+    arrays."""
     return tree_map(_np, tree)
 
 

@@ -67,6 +67,22 @@ def road_grid(n: int, max_weight: int = 8, seed: int = 0) -> np.ndarray:
     return np.concatenate([e, w[:, None]], axis=1).astype(np.int32)
 
 
+def molecule_batch(n_mols: int, atoms_per_mol: int, seed: int = 0
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Batched random molecules: positions [N,3] + radius-graph edges."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(size=(n_mols * atoms_per_mol, 3)).astype(np.float32)
+    edges = []
+    for m in range(n_mols):
+        base = m * atoms_per_mol
+        p = pos[base:base + atoms_per_mol]
+        d = np.linalg.norm(p[:, None] - p[None, :], axis=-1)
+        src, dst = np.nonzero((d < 1.8) & (d > 0))
+        keep = src < dst
+        edges.append(np.stack([src[keep] + base, dst[keep] + base], axis=1))
+    return pos, np.concatenate(edges).astype(np.int32)
+
+
 def random_batch_updates(edges: np.ndarray, n: int, n_ins: int, n_del: int,
                          seed: int = 0, existing=None, n_rew: int = 0,
                          max_weight: int = 1) -> list[tuple]:

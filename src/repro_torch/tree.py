@@ -1,8 +1,11 @@
-"""Nested dicts of tensors: the port's stand-in for a JAX pytree.
+"""Nested dicts and lists of tensors: the port's stand-in for a JAX pytree.
 
-Params, gradients and optimiser state are nested dicts whose leaves are
-tensors (or arrays, for `convert`). Leaves are visited in sorted-key
-order, the order `jax.tree` flattens a dict in.
+Params, gradients and optimiser state are nested dicts and lists whose
+leaves are tensors (or arrays, for `convert`). Leaves are visited in
+JAX's flatten order: a dict's values in sorted-key order, a list's in
+index order. Everything else is a leaf, tuples included: the optimiser
+maps over trees whose leaves are tuples such as `(p, m, v)` and picks
+their parts afterwards.
 """
 from __future__ import annotations
 
@@ -15,13 +18,18 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, x, *(r[i] for r in rest))
+                for i, x in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
-    """The leaves of `tree` in sorted-key order."""
+    """The leaves of `tree` in JAX's flatten order."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in tree_leaves(t)]
     return [tree]
 
 
@@ -37,4 +45,6 @@ def _unflatten(t: Any, it) -> Any:
     # garbage collector runs.
     if isinstance(t, dict):
         return {k: _unflatten(t[k], it) for k in sorted(t)}
+    if isinstance(t, list):
+        return [_unflatten(x, it) for x in t]
     return next(it)

@@ -26,7 +26,11 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.launch.mesh, repro_torch.models.mind, "
             "repro_torch.train.optimizer, repro_torch.train.train_step, "
             "repro_torch.configs.common, repro_torch.configs.mind, "
-            "repro_torch.data.synthetic; "
+            "repro_torch.data.synthetic, repro_torch.models.gnn, "
+            "repro_torch.graphs.sampler, repro_torch.graphs.segment, "
+            "repro_torch.gather, repro_torch.configs.schnet, "
+            "repro_torch.configs.dimenet, repro_torch.configs.mace, "
+            "repro_torch.configs.graphcast; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; print(bad)")
@@ -98,6 +102,33 @@ def test_mind_init_and_materialize_without_device_raise_without_cuda():
     assert mind.init_params(cfg, device="cpu")["item_embed"].device == \
         synthetic.materialize(layout, device="cpu")["hist"].device == \
         torch.device("cpu")
+
+
+def test_gnn_and_sampler_without_device_raise_without_cuda():
+    """The GNN params and batches, the CSR and the sampler's host seeds
+    are put on the GPU unless they are given the CPU."""
+    from repro_torch.configs import common
+    from repro_torch.data import synthetic
+    from repro_torch.graphs import sampler
+    from repro_torch.models import gnn
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the GPU")
+    cfg = common.get_arch("schnet").reduced_config()
+    edges = np.array([[0, 1], [1, 2]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gnn.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic.coherent_gnn_batch("schnet", 8, 2, cfg.d_in, cfg.d_out)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sampler.build_csr(3, edges)
+    csr = sampler.build_csr(3, edges, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sampler.sample_neighbors(csr, np.array([0, 1]), 2, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sampler.sample_subgraph(csr, [0, 1], (2,), None)
+    nbrs, _ = sampler.sample_neighbors(csr, torch.tensor([0, 1]), 2, None)
+    assert nbrs.device == gnn.init_params(cfg, device="cpu")[
+        "embed"][0]["w"].device == torch.device("cpu")
 
 
 def test_checkpoint_restore_without_device_raises_without_cuda(tmp_path):
