@@ -161,19 +161,20 @@
    the reference's `gnn_cell` with params from a seeded CPU generator
    copied to the card, the card against the CPU: forward, loss and every
    gradient within 1e-4 of the tensor's largest |value| (GraphCast's
-   gradients within 1e-3: float32 rounding through its 16 layers), and
-   MACE's outputs under a seeded QR rotation of the positions within 1e-4;
-   then a, for each arch on `minibatch_lg` (169,984 nodes, 337,920 directed
-   edges, d_in 602) and `molecule` (4,096 / 16,384 / 16, 128 graphs), drawn
-   by `materialize(gnn_layout(...), seed 0)`: init statistics, 8 steps of
-   `make_generic_train_step` at lr 1e-3 (finite, the last loss below the
-   first; for GraphCast, whose loss at full width need not fall at this
-   rate in the reference either, instead the first loss equal to the CPU's
-   within 1e-4), step ms (CUDA events, median of steps 2–8), forward +
-   backward ms against the optimiser's ms and its bytes bound, host syncs
-   of step 8 (must be 0), peak device memory. DimeNet runs on
-   `full_graph_sm` instead if `minibatch_lg` runs out of memory, and the
-   log says so. c runs after phase 4, on phase 3's graph: `build_csr` of
+   gradients within 1e-3: float32 rounding through its 16 layers), each
+   device's gradients against a float64 recomputation on the card within
+   the same limits, and MACE's outputs under a seeded QR rotation of the
+   positions within 1e-4; then a, for each arch on `minibatch_lg` (169,984
+   nodes, 337,920 directed edges, d_in 602) and `molecule` (4,096 / 16,384
+   / 16, 128 graphs), drawn by `materialize(gnn_layout(...), seed 0)`: init
+   statistics, 8 steps of `make_generic_train_step` at lr 1e-3 (finite,
+   the last loss below the first; for GraphCast, whose loss at full width
+   need not fall at this rate in the reference either, instead the losses
+   of the same steps from the same params on the CPU within 1e-2: all 8
+   on `molecule`, the first 2 on `minibatch_lg`), step ms (CUDA events,
+   median of steps 2–8), forward + backward ms against the optimiser's ms
+   and its bytes bound, host syncs of step 8 (must be 0), peak device
+   memory. c runs after phase 4, on phase 3's graph: `build_csr` of
    BA(2^20, 4) (seconds), `sample_subgraph` from 1,024 seeds with fanouts
    (15, 10), which gives `minibatch_lg`'s 169,984 nodes and 168,960 sampled
    edges, uniform and biased by closeness to the landmarks (−min over
@@ -2235,7 +2236,6 @@ def run_mind(torch, np, dev, card) -> dict:
 
 GNN_ARCHS = ("schnet", "dimenet", "mace", "graphcast")
 GNN_RUN_SHAPES = ("minibatch_lg", "molecule")
-GNN_FALLBACK_SHAPE = "full_graph_sm"   # DimeNet's, should minibatch_lg not fit
 GNN_STEPS = 8
 GNN_LR = 1e-3              # tests/test_models_smoke.py::test_gnn_smoke_train
 #: Card against CPU at full width on `molecule`: max |card − CPU| over the
@@ -2245,10 +2245,10 @@ GNN_LR = 1e-3              # tests/test_models_smoke.py::test_gnn_smoke_train
 #: expected, 10× that allowed.
 GNN_CARD_TOL = 1e-4
 #: GraphCast's gradients: its 16 layers at outputs of ≈ 1e6–1e7 amplify
-#: float32 rounding. On the CPU alone its float32 gradients lie up to
-#: 2.4e-4 of a leaf's largest |value| from a float64 recomputation (the
-#: other archs' within 5e-6), and the card's rounding is as large; the
-#: first chip run measured 5.2e-4 between the two.
+#: float32 rounding, on each device against the float64 recomputation
+#: (logged as `grad_cpu_f64` and `grad_card_f64`; on a cut shape,
+#: tests/test_torch_gnn.py::test_graphcast_full_width_float32_rounding),
+#: so card and CPU lie farther apart than the other archs do.
 GNN_GRAD_TOL = {"graphcast": 1e-3}
 #: MACE's outputs after a rotation of the positions, over their largest
 #: |value| (the reference test's 1e-4).
@@ -2258,9 +2258,14 @@ GNN_ROTATION_TOL = 1e-4
 #: in the reference) give outputs of ≈ 1e6–1e7 at init, and 8 AdamW steps
 #: then drive the loss up or down with the init, in `repro` as in the
 #: port (tests/test_torch_gnn.py::test_graphcast_full_width_diverges_as_
-#: reference). Their losses must stay finite and the first must equal the
-#: CPU's on the same params and batch within `GNN_CARD_TOL`.
+#: reference). Their losses must stay finite and equal those of the same
+#: steps on the CPU from the same params and batch, the first
+#: `GNN_CPU_STEPS[shape]` of them, within `GNN_UNSTABLE_RTOL` (the tolerance
+#: between the reference and the port in that test: the growth amplifies
+#: rounding).
 GNN_UNSTABLE = {"graphcast"}
+GNN_CPU_STEPS = {"molecule": GNN_STEPS, "minibatch_lg": 2}
+GNN_UNSTABLE_RTOL = 1e-2
 SAMPLER_SEEDS = 1024
 SAMPLER_FANOUTS = (15, 10)
 SAMPLER_CALLS = 20
@@ -2333,16 +2338,32 @@ def gnn_card_vs_cpu(torch, np, dev, card) -> dict:
         b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
         o_c, l_c, g_c = gnn_loss_grads(torch, gnn, p_cpu, b_cpu, cfg)
         o_d, l_d, g_d = gnn_loss_grads(torch, gnn, p_dev, b_dev, cfg)
-        used = [(a, c) for a, c in zip(g_d, g_c) if c.abs().max() > 0]
+        # The float64 recomputation, on the card.
+        o_w, l_w, g_w = gnn_loss_grads(
+            torch, gnn, tree_map(torch.Tensor.double, p_dev),
+            {k: v.double() if v.is_floating_point() else v
+             for k, v in b_dev.items()},
+            dataclasses.replace(cfg, dtype=torch.float64))
+        used = [i for i, c in enumerate(g_c) if c.abs().max() > 0]
         row = dict(forward=scaled_err(o_d, o_c),
                    loss=abs(float(l_d) - float(l_c)) / abs(float(l_c)),
-                   grad=max(scaled_err(a, c) for a, c in used),
+                   grad=max(scaled_err(g_d[i], g_c[i]) for i in used),
+                   forward_card_f64=scaled_err(o_d, o_w),
+                   forward_cpu_f64=scaled_err(o_c, o_w),
+                   grad_card_f64=max(scaled_err(g_d[i], g_w[i])
+                                     for i in used),
+                   grad_cpu_f64=max(scaled_err(g_c[i], g_w[i])
+                                    for i in used),
                    leaves=len(g_c), zero_grad_leaves=len(g_c) - len(used),
-                   zero_grads_equal=all(not a.any() for a, c in
-                                        zip(g_d, g_c) if not c.any()))
+                   zero_grads_equal=all(not a.any() and not w.any() for
+                                        a, c, w in zip(g_d, g_c, g_w)
+                                        if not c.any()))
         row["grad_tol"] = GNN_GRAD_TOL.get(arch, GNN_CARD_TOL)
-        ok = max(row["forward"], row["loss"]) <= GNN_CARD_TOL \
-            and row["grad"] <= row["grad_tol"] and row["zero_grads_equal"]
+        ok = max(row["forward"], row["loss"], row["forward_card_f64"],
+                 row["forward_cpu_f64"]) <= GNN_CARD_TOL \
+            and max(row["grad"], row["grad_card_f64"],
+                    row["grad_cpu_f64"]) <= row["grad_tol"] \
+            and row["zero_grads_equal"]
         if arch == "mace":
             q, _ = np.linalg.qr(np.random.default_rng(3).normal(size=(3, 3)))
             if np.linalg.det(q) < 0:
@@ -2358,7 +2379,8 @@ def gnn_card_vs_cpu(torch, np, dev, card) -> dict:
         if not ok:
             bad.append(arch)
     log(f"phase 12b ({card}): card against the CPU at full width on "
-        f"molecule (max error over the largest |value|, limit "
+        f"molecule, and each against a float64 recomputation on the card "
+        f"(*_f64) (max error over the largest |value|, limit "
         f"{GNN_CARD_TOL}, GraphCast's gradients {GNN_GRAD_TOL['graphcast']};"
         f" MACE's rotation, limit {GNN_ROTATION_TOL}): "
         f"{rows}")
@@ -2371,8 +2393,8 @@ def gnn_card_vs_cpu(torch, np, dev, card) -> dict:
 def gnn_train(torch, np, dev, card, arch: str, shape: str) -> dict:
     """Phase 12a for one (arch, shape): init statistics, then `GNN_STEPS`
     steps at full width. Fails on bad init statistics, non-finite or
-    non-falling losses (for `GNN_UNSTABLE`, a first loss off the CPU's),
-    or a host sync in the last step."""
+    non-falling losses (for `GNN_UNSTABLE`, losses off the CPU's), or a
+    host sync in the last step."""
     from repro_torch.configs import common
     from repro_torch.models import gnn
     from repro_torch.train import optimizer as opt_lib
@@ -2394,16 +2416,20 @@ def gnn_train(torch, np, dev, card, arch: str, shape: str) -> dict:
     n_params = sum(t.numel() for t in tree_leaves(params))
     unstable = arch in GNN_UNSTABLE
     if unstable:
-        # The CPU's loss at the init params, for the first step's loss.
-        with torch.no_grad():
-            cpu_loss = float(gnn.loss_fn(
-                tree_map(lambda t: t.cpu(), params),
-                {k: v.cpu() for k, v in batch.items()}, cfg))
+        p_cpu = tree_map(lambda t: t.cpu(), params)
     opt = opt_lib.AdamWConfig(lr=GNN_LR)
     state, run = timed_train(torch, lambda p, b: gnn.loss_fn(p, b, cfg),
                              tts.init_train_state(params, opt), batch, opt,
                              GNN_STEPS, GNN_STEPS)
-    del params, state, batch
+    del params, state
+    if unstable:
+        t0 = time.perf_counter()
+        run["cpu_losses"] = gnn_cpu_losses(
+            torch, gnn, p_cpu, {k: v.cpu() for k, v in batch.items()}, cfg,
+            GNN_CPU_STEPS[shape])
+        run["cpu_s"] = time.perf_counter() - t0
+        del p_cpu
+    del batch
     later = slice(1, None)
     # The optimiser's least bytes: p, g, m, v read and p, m, v written.
     nbytes = 7 * 4 * n_params
@@ -2428,14 +2454,16 @@ def gnn_train(torch, np, dev, card, arch: str, shape: str) -> dict:
         f"{run['peak_gb']:.2f} GB; batch drawn in {data_s:.1f} s; init "
         f"{init}")
     if unstable:
-        run["cpu_first_loss"] = cpu_loss
-        run["first_loss_err"] = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+        run["cpu_loss_err"] = max(abs(a - b) / abs(b) for a, b in
+                                  zip(losses, run["cpu_losses"]))
         log(f"phase 12 train {arch} {shape}: the loss "
             f"{'falls' if losses[-1] < losses[0] else 'rises'} (need not "
-            f"fall at this width, in the reference too); first loss "
-            f"{losses[0]:.8g} against the CPU's {cpu_loss:.8g} (relative "
-            f"{run['first_loss_err']:.3g}, limit {GNN_CARD_TOL})")
-        ok = run["first_loss_err"] <= GNN_CARD_TOL
+            f"fall at this width, in the reference too); the first "
+            f"{len(run['cpu_losses'])} losses against the CPU's "
+            f"{[float(f'{x:.6g}') for x in run['cpu_losses']]} from the same "
+            f"params (relative {run['cpu_loss_err']:.3g}, limit "
+            f"{GNN_UNSTABLE_RTOL}; the CPU took {run['cpu_s']:.1f} s)")
+        ok = run["cpu_loss_err"] <= GNN_UNSTABLE_RTOL
     else:
         ok = losses[-1] < losses[0]
     if not all(np.isfinite(losses)) or not ok:
@@ -2446,30 +2474,34 @@ def gnn_train(torch, np, dev, card, arch: str, shape: str) -> dict:
     return run
 
 
+def gnn_cpu_losses(torch, gnn, params, batch, cfg, k: int) -> list:
+    """The first `k` losses of phase 12a's train steps, on the CPU from
+    `params`: `k` − 1 steps, then the loss they leave."""
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as tts
+    opt = opt_lib.AdamWConfig(lr=GNN_LR)
+    step = tts.make_generic_train_step(lambda p, b: gnn.loss_fn(p, b, cfg),
+                                       opt)
+    state, losses = tts.init_train_state(params, opt), []
+    for _ in range(k - 1):
+        state, aux = step(state, batch)
+        losses.append(float(aux["loss"]))
+    with torch.no_grad():
+        losses.append(float(gnn.loss_fn(state["params"], batch, cfg)))
+    return losses
+
+
 def run_gnn(torch, np, dev, card) -> dict:
     """Phase 12a/b: the card against the CPU, then every (arch, shape)'s
-    train steps. DimeNet runs on `GNN_FALLBACK_SHAPE` if `minibatch_lg`
-    runs out of memory (logged as a cut)."""
+    train steps."""
     t_phase = time.perf_counter()
     out = {"card": card, "card_vs_cpu": gnn_card_vs_cpu(torch, np, dev, card),
            "train": {}}
     for arch in GNN_ARCHS:
         for shape in GNN_RUN_SHAPES:
             torch.cuda.empty_cache()
-            try:
-                row = gnn_train(torch, np, dev, card, arch, shape)
-            except torch.cuda.OutOfMemoryError as e:
-                if (arch, shape) != ("dimenet", "minibatch_lg"):
-                    raise
-                peak = torch.cuda.max_memory_allocated() / 1e9
-                log(f"CUT: phase 12 dimenet on minibatch_lg ran out of "
-                    f"memory (peak {peak:.2f} GB; {str(e).splitlines()[0]});"
-                    f" it runs on {GNN_FALLBACK_SHAPE} instead")
-                del e
-                torch.cuda.empty_cache()
-                row = gnn_train(torch, np, dev, card, arch, GNN_FALLBACK_SHAPE)
-                row["cut"] = dict(shape=shape, oom_peak_gb=peak)
-            out["train"][f"{arch} {row['shape']}"] = row
+            out["train"][f"{arch} {shape}"] = gnn_train(torch, np, dev, card,
+                                                        arch, shape)
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 12a/b ({card}): {out['wall_s']:.1f} s")

@@ -16,7 +16,10 @@ lists; GraphCast's batch adds the grid↔mesh topology.
 Each contraction takes its inputs in float32 and returns float32 before
 the cast to the config's dtype, as the reference's
 `preferred_element_type=float32` followed by `.astype(dtype)`; a dense
-layer adds its bias in float32 before that cast (one fused product). Two
+layer adds its bias in float32 before that cast (one fused product). A
+float64 config (the port's own; the reference always accumulates in
+float32) computes in float64 throughout, as a float64 recomputation of
+the float32 model to hold rounding against. Two
 choices keep eager autograd's memory near what XLA needs under `jit`:
 DimeNet's `[T, n_bilinear, H]` filter, which depends on no block's
 params, is computed once before the block loop (XLA hoists it; the
@@ -87,11 +90,20 @@ class _Init:
                 for a, b in zip(dims[:-1], dims[1:])]
 
 
+def _acc(*xs: torch.Tensor) -> torch.dtype:
+    """The accumulation dtype: float32, or float64 for float64 inputs."""
+    dt = torch.float32
+    for x in xs:
+        dt = torch.promote_types(dt, x.dtype)
+    return dt
+
+
 def _mlp(layers: list, x: torch.Tensor, act=F.silu,
          final_act: bool = False) -> torch.Tensor:
     for i, l in enumerate(layers):
-        x = F.linear(x.to(torch.float32), l["w"].to(torch.float32).t(),
-                     l["b"].to(torch.float32)).to(x.dtype)
+        acc = _acc(x, l["w"])
+        x = F.linear(x.to(acc), l["w"].to(acc).t(),
+                     l["b"].to(acc)).to(x.dtype)
         if i < len(layers) - 1 or final_act:
             x = act(x)
     return x
@@ -196,8 +208,7 @@ def dimenet_forward(p: dict, batch: dict, c: GNNConfig) -> torch.Tensor:
     angle = batch["tri_angle"]                             # [T]
     sbf = _sbf_expand(index_rows(d, t_kj), angle, c).to(c.dtype)  # [T, S*R]
     # The same in every block: computed once (see the module docstring).
-    w = torch.einsum("ts,sbh->tbh", sbf.to(torch.float32),
-                     p["bilinear"].to(torch.float32)).to(c.dtype)
+    w = _contract("ts,sbh->tbh", sbf, p["bilinear"]).to(c.dtype)
 
     for blk in p["blocks"]:
         mk = index_rows(_mlp(blk["tri_kj"], m), t_kj)      # [T, H]
@@ -230,8 +241,10 @@ def mace_init(c: GNNConfig, init: _Init) -> dict:
 
 
 def _contract(eq: str, *xs: torch.Tensor) -> torch.Tensor:
-    """einsum with float32 inputs and a float32 result."""
-    return torch.einsum(eq, *(x.to(torch.float32) for x in xs))
+    """einsum with float32 inputs and a float32 result (float64 for
+    float64 inputs)."""
+    acc = _acc(*xs)
+    return torch.einsum(eq, *(x.to(acc) for x in xs))
 
 
 def mace_forward(p: dict, batch: dict, c: GNNConfig) -> torch.Tensor:
@@ -389,10 +402,10 @@ def loss_fn(params: dict, batch: dict, c: GNNConfig) -> torch.Tensor:
         n_graphs = tgt.shape[0]  # per-graph targets
         pred = masked_segment_sum(pred, batch["graph_ids"], n_graphs,
                                   batch["node_mask"])
-        diff = (pred - tgt).to(torch.float32)
+        diff = (pred - tgt).to(_acc(pred))
         return torch.mean(diff * diff)
     mask = batch.get("node_mask")
-    diff = (pred - tgt).to(torch.float32)
+    diff = (pred - tgt).to(_acc(pred))
     sq = torch.sum(diff * diff, dim=-1)
     if mask is not None:
         sq = torch.where(mask, sq, 0.0)

@@ -23,6 +23,13 @@ with 16 `proc` layers through `tree` and `convert`, with one
 atol 1e-7, as `tests/test_torch_train.py`); and GraphCast's full config
 on a cut of `minibatch_lg`'s layout, whose loss rises at lr 1e-3 in both
 packages (first loss at rtol 1e-5, the 8 losses at rtol 1e-2).
+A float64 config computes in float64: on each arch's reduced config it
+is held to the reference's float32 at the same forward and gradient
+tolerances; on GraphCast's full config at that cut its float32 gradients
+lie more than 1e-5 and at most 1e-3 of a leaf's largest |value| from the
+float64 recomputation (9.9e-5 measured on the CPU): the 16 layers amplify
+float32 rounding, the reason chip_smoke holds GraphCast's gradients at
+1e-3.
 """
 from __future__ import annotations
 
@@ -122,6 +129,36 @@ def test_grads_match_reference(ref):
     want = jax.tree_util.tree_leaves(ref["grads"])
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
+        scale = max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=GRAD_TOL * scale, err_msg=str(i))
+
+
+def _loss_grads(params, batch, cfg):
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = tgnn.loss_fn(leaves, batch, cfg)
+    return loss.detach(), torch.autograd.grad(
+        loss, tree_leaves(leaves), allow_unused=True, materialize_grads=True)
+
+
+def _float64(cfg, params, batch):
+    return (dataclasses.replace(cfg, dtype=torch.float64),
+            tree_map(torch.Tensor.double, params),
+            {k: v.double() if v.is_floating_point() else v
+             for k, v in batch.items()})
+
+
+def test_float64_recomputation_matches_reference(ref):
+    cfg, params, batch = _float64(*_port(ref))
+    out = tgnn.forward(params, batch, cfg)
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), ref["out"], **FWD_TOL)
+    loss, got = _loss_grads(params, batch, cfg)
+    assert loss.dtype == torch.float64
+    np.testing.assert_allclose(float(loss), ref["loss"], rtol=1e-5)
+    want = jax.tree_util.tree_leaves(ref["grads"])
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.float64
         scale = max(float(np.abs(w).max()), 1e-30)
         np.testing.assert_allclose(g.numpy(), w, rtol=0,
                                    atol=GRAD_TOL * scale, err_msg=str(i))
@@ -467,3 +504,24 @@ def test_graphcast_full_width_diverges_as_reference():
     assert all(np.isfinite(got))
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
     np.testing.assert_allclose(got, want, rtol=1e-2)
+
+
+def test_graphcast_full_width_float32_rounding():
+    """GraphCast's full config on the cut of the test above: its float32
+    gradients lie more than 1e-5 (the reduced configs' limit) and at most
+    1e-3 of a leaf's largest |value| from the float64 recomputation; the
+    loss agrees at rtol 1e-5."""
+    cfg = dataclasses.replace(
+        tcommon.get_arch("graphcast").model_config(), d_in=12)
+    batch = tsyn.materialize(
+        tsyn.gnn_layout("graphcast", 1200, 2000, 12, cfg.d_out), seed=0,
+        device="cpu")
+    params = tgnn.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    loss32, g32 = _loss_grads(params, batch, cfg)
+    c64, p64, b64 = _float64(cfg, params, batch)
+    loss64, g64 = _loss_grads(p64, b64, c64)
+    np.testing.assert_allclose(float(loss32), float(loss64), rtol=1e-5)
+    gap = max(float((a.double() - w).abs().max() / w.abs().max())
+              for a, w in zip(g32, g64) if w.abs().max() > 0)
+    assert 1e-5 < gap <= 1e-3, gap

@@ -2,7 +2,6 @@
 """chip_smoke's phase 12 alone: the GNN family and the sampler on one GPU.
 
     python3 tools/probe_gnn.py            # 12a/b, then 12c
-    python3 tools/probe_gnn.py --no-sampler
     python3 tools/probe_gnn.py --profile  # only: one step per arch traced
 
 Runs `chip_smoke.run_gnn` (the card against the CPU on `molecule`, then
@@ -47,21 +46,20 @@ def main() -> int:
     out["gnn"] = cs.run_gnn(torch, np, dev, card)
     if any(cs.read_launches().values()):
         raise AssertionError(f"GNN launches {cs.read_launches()}")
-    if "--no-sampler" not in sys.argv[1:]:
-        from repro_torch import api
-        from repro_torch.graphs import coo
-        from repro_torch.graphs import generators as gen
-        edges = gen.barabasi_albert(cs.N, cs.BA_M, seed=0)
-        ups = gen.random_batch_updates(edges, cs.N, n_ins=cs.N_INS,
-                                       n_del=cs.N_DEL, seed=1)
-        g0, lab0 = api.build(cs.N, edges, num_landmarks=cs.LANDMARKS,
-                             capacity=cs.CAPACITY, device=dev)
-        _, lab1, _ = api.update(g0, lab0, coo.make_batch(
-            ups, pad_to=cs.N_INS + cs.N_DEL, device=dev))
-        cs.reset_launches()
-        out["sampler"] = cs.run_sampler(torch, np, dev, card, edges, lab1)
-        if any(cs.read_launches().values()):
-            raise AssertionError(f"sampler launches {cs.read_launches()}")
+    from repro_torch import api
+    from repro_torch.graphs import coo
+    from repro_torch.graphs import generators as gen
+    edges = gen.barabasi_albert(cs.N, cs.BA_M, seed=0)
+    ups = gen.random_batch_updates(edges, cs.N, n_ins=cs.N_INS,
+                                   n_del=cs.N_DEL, seed=1)
+    g0, lab0 = api.build(cs.N, edges, num_landmarks=cs.LANDMARKS,
+                         capacity=cs.CAPACITY, device=dev)
+    _, lab1, _ = api.update(g0, lab0, coo.make_batch(
+        ups, pad_to=cs.N_INS + cs.N_DEL, device=dev))
+    cs.reset_launches()
+    out["sampler"] = cs.run_sampler(torch, np, dev, card, edges, lab1)
+    if any(cs.read_launches().values()):
+        raise AssertionError(f"sampler launches {cs.read_launches()}")
     print(json.dumps(out))
     return 0
 
