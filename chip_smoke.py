@@ -184,7 +184,33 @@
    larger than the uniform ones'. The kernels' launch counts are set to 0
    before a/b and before c and must read 0 after each: no GNN module or
    sampler launches a hand-written kernel.
-13. Prints a `summary:` line with every number above as JSON, the
+13. The transformer LMs (`models/transformer.py`, `models/moe.py`,
+   `train/serve_step.py`, `make_lm_train_step`), right after phase
+   12a/b while the card is empty, one model at a time, each freed before
+   the next; params from a seeded generator on the card. a: each arch's
+   reduced config in float32, the card against the CPU (forward, loss,
+   every gradient, 4 decode steps, 2 train steps, microbatched for
+   minitron-4b); its full-width config cut to 2 layers (DeepSeek: 1
+   dense + 1 MoE) on tokens [2, 64], forward, `chunked_loss` and every
+   gradient in bfloat16 against a float32 recomputation of the same
+   params on the card (relative L2 errors within `LM_BF16_TOL`); at full
+   depth (Mixtral: 8 of 56 layers, `LM_DEPTH`) teacher-forced
+   `decode_step` over 16 tokens against `forward` (`LM_FORCED_TOL`),
+   greedy `generate` run twice (equal) and against forward's argmax (at
+   least 0.75 agreeing, the reference test's bound). b: prefill_32k
+   (one sequence of 32,768 tokens), decode_32k (cache at max_len 33,280
+   from a seeded normal draw at cache_len 32,768, 16 greedy steps, the
+   batch the largest power of two whose weights and cache fit in 68 GB),
+   and DeepSeek at long_500k (max_len 524,800, 4 steps): ms per step
+   (CUDA events), tokens/s, the bytes bound (weights plus the cache read
+   over 3.35 TB/s), host syncs of a step, peak memory. c: 6 steps of
+   `make_lm_train_step` on the full minitron-4b at train_4k's sequence
+   4096 and batch 2: losses finite, step ms (median of steps 2–6),
+   forward + backward against the optimiser and its bytes bound, MFU
+   against 989.4 TFLOP/s, host syncs of step 6 (must be 0), peak memory.
+   The kernels' launch counts are set to 0 before the phase and must
+   read 0 after it: the reference's LMs reach no Pallas kernel.
+14. Prints a `summary:` line with every number above as JSON, the
    `{"kernels": [...]}` line (kernel A's and B's launches are run A's),
    the card line, and last `{"ok": true, "device": {...}}`.
 
@@ -2597,6 +2623,522 @@ def run_sampler(torch, np, dev, card, edges, lab) -> dict:
     return out
 
 
+# --- phase 13: the transformer LMs at full width -----------------------------
+
+LM_ARCHS = ("gemma2-9b", "minitron-4b", "granite-8b", "deepseek-v2-lite-16b",
+            "mixtral-8x22b")
+#: Layers kept of the full config where the whole does not fit one card:
+#: Mixtral's 56 layers hold 2.504 B params each (281 GB in bfloat16); 8 of
+#: them with the embedding and the head are 40.9 GB.
+LM_DEPTH = {"mixtral-8x22b": 8}
+LM_CUT_LAYERS = 2          # 13a's bfloat16 check (DeepSeek: 1 dense + 1 MoE)
+LM_CUT_TOKENS = (2, 64)
+LM_FORCED = (2, 16)        # teacher-forced decode: batch, tokens
+LM_GEN = (2, 16, 8)        # generate: batch, prompt, new tokens
+LM_GEN_AGREE = 0.75        # tests/test_models_smoke.py::test_generate_loop
+LM_NO_DROP = 16.0          # capacity factor of 13a's decode checks: no drops
+LM_SERVE_GB = 68.0         # weights + cache of a decode batch
+LM_MAX_BATCH = 128         # decode_32k's batch in configs/common.py
+LM_DECODE_STEPS = 16
+LM_LONG = ("deepseek-v2-lite-16b",)
+LM_LONG_STEPS = 4
+LM_TRAIN_ARCH = "minitron-4b"
+LM_TRAIN_BATCH = 2         # cut from train_4k's 256
+LM_TRAIN_STEPS = 6
+LM_REDUCED_STEPS = 2
+LM_BF16_PEAK = 989.4e12    # H100 SXM dense bfloat16, FLOP/s
+#: 13a, bfloat16 against the float32 recomputation of the same params on
+#: the card: relative L2 errors ‖bf16 − f32‖ / ‖f32‖. bfloat16 keeps 8
+#: significant bits (unit roundoff 2^-9 = 2.0e-3 by rounding to nearest);
+#: two layers round each activation a few times, so the logits and each
+#: gradient may lie a few roundoffs away. 2^-5 = 3.1e-2 for the logits
+#: and the gradients; the loss, a mean over 128 tokens, 2^-8. The
+#: float32 run routes each MoE token to the bfloat16 run's experts
+#: (`ReplayRoute`), so a near-tie of the router does not count here.
+LM_BF16_TOL = {"logits": 2.0 ** -5, "loss": 2.0 ** -8, "grad": 2.0 ** -5}
+#: 13a at full depth, teacher-forced decode against forward (two bfloat16
+#: paths through every layer, each rounding in its own order): 2^-4.
+LM_FORCED_TOL = 2.0 ** -4
+#: 13a, reduced configs in float32, the card against the CPU: forward and
+#: each gradient within 1e-4 of the tensor's largest |value| (float32 sums
+#: in another order, as phase 12's GNN_CARD_TOL), losses rtol 1e-5.
+LM_CARD_TOL = {"fwd": 1e-4, "grad": 1e-4, "loss": 1e-5}
+
+
+def lm_config(arch: str, **changes):
+    from repro_torch.configs import common
+    cfg = common.get_arch(arch).model_config()
+    if arch in LM_DEPTH and "n_layers" not in changes:
+        changes["n_layers"] = LM_DEPTH[arch]
+    return dataclasses.replace(cfg, **changes)
+
+
+def rel_l2(got, want) -> float:
+    """‖got − want‖ / ‖want‖, the squares summed in float64 over slices
+    of 2^26 elements on the tensors' device (a whole float64 copy of
+    Mixtral's expert leaves would not fit beside them)."""
+    num = den = 0.0
+    for g, w in zip(got.detach().reshape(-1).split(1 << 26),
+                    want.detach().reshape(-1).split(1 << 26)):
+        w = w.double()
+        num += float(((g.double() - w) ** 2).sum())
+        den += float((w * w).sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def lm_loss_grads(torch, tfm, params, tokens, cfg):
+    """(loss, gradients in the tree's leaf order) of `chunked_loss` with
+    targets = tokens."""
+    from repro_torch.tree import tree_leaves, tree_map
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = tfm.chunked_loss(leaves, tokens, tokens, cfg)
+    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    return loss.detach(), list(grads)
+
+
+class ReplayRoute:
+    """Wraps `models.moe.route`: in "record" mode keeps each call's expert
+    ids; in "replay" mode gives the recorded ids back, call by call, with
+    the gates of this run's own router probabilities at them, and counts
+    the tokens whose free choice would have been another set of experts.
+    The bfloat16 and float32 runs of 13a make the same calls in the same
+    order, so the float32 recomputation routes each token to the experts
+    the bfloat16 run chose: at random init the router's probabilities
+    are near uniform, and a rounding-sized change flips near-ties among
+    64 experts, which would move whole expert gradients."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.moe, self.real = torch, moe, moe.route
+        self.ids, self.mode, self.tokens, self.flipped = [], "record", 0, 0
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+    def __call__(self, p, xt, c):
+        torch = self.torch
+        if self.mode == "record":
+            gates, ids = self.real(p, xt, c)
+            self.ids.append(ids)
+            return gates, ids
+        ids = self.ids.pop(0)
+        _, free = self.real(p, xt, c)
+        self.tokens += ids.shape[0] * ids.shape[1]
+        self.flipped += int((torch.sort(free, -1).values
+                             != torch.sort(ids, -1).values).any(-1).sum())
+        probs = torch.softmax(torch.matmul(xt.float(), p["router"].float()),
+                              dim=-1)
+        gates = torch.gather(probs, -1, ids)
+        return gates / torch.clamp(torch.sum(gates, -1, keepdim=True),
+                                   min=1e-9), ids
+
+
+def lm_bf16_check(torch, np, dev, card, arch) -> dict:
+    """13a: the full-width config cut to `LM_CUT_LAYERS` layers, bfloat16
+    against a float32 recomputation from the same params on the card,
+    which routes each MoE token as the bfloat16 run did (`ReplayRoute`)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+    cfg = lm_config(arch, n_layers=LM_CUT_LAYERS)
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, LM_CUT_TOKENS).astype(np.int32)).to(dev)
+    with ReplayRoute(torch, moe) as routes:
+        with torch.no_grad():
+            logits = tfm.forward(params, toks, cfg)
+        loss, grads = lm_loss_grads(torch, tfm, params, toks, cfg)
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        p32 = tree_map(lambda p: p.float(), params)
+        del params
+        routes.mode = "replay"
+        with torch.no_grad():
+            logits32 = tfm.forward(p32, toks, cfg32)
+        loss32, grads32 = lm_loss_grads(torch, tfm, p32, toks, cfg32)
+    names = leaf_names(p32)
+    row = dict(layers=LM_CUT_LAYERS, tokens=list(LM_CUT_TOKENS),
+               logits=rel_l2(logits, logits32),
+               loss=abs(float(loss) - float(loss32)) / abs(float(loss32)),
+               loss_bf16=float(loss), loss_f32=float(loss32),
+               grad={n: rel_l2(g, g32) for n, g, g32 in zip(names, grads,
+                                                           grads32)},
+               routed_tokens=routes.tokens,
+               route_flips=routes.flipped / max(routes.tokens, 1),
+               finite=bool(torch.isfinite(logits).all()) and all(
+                   bool(torch.isfinite(g).all()) for g in grads))
+    row["grad_max"] = max(row["grad"].values())
+    row["ok"] = (row["finite"] and row["logits"] <= LM_BF16_TOL["logits"]
+                 and row["loss"] <= LM_BF16_TOL["loss"]
+                 and row["grad_max"] <= LM_BF16_TOL["grad"])
+    worst = max(row["grad"], key=row["grad"].get)
+    flips = (f"; float32's free routing would move "
+             f"{row['route_flips']:.1%} of {routes.tokens} routed tokens"
+             if routes.tokens else "")
+    log(f"phase 13a {arch} bf16 vs float32 ({card}; {LM_CUT_LAYERS} layers, "
+        f"tokens {LM_CUT_TOKENS}): logits rel err {row['logits']:.3e}, loss "
+        f"{row['loss']:.3e} ({row['loss_bf16']:.5f} vs {row['loss_f32']:.5f}),"
+        f" gradients max rel err {row['grad_max']:.3e} ({worst}); limits "
+        f"{LM_BF16_TOL}{flips}")
+    del p32, grads, grads32, logits, logits32
+    return row
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Leaf paths in `tree_leaves` order, joined by '/'."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(
+            tree[k], f"{prefix}/{k}" if prefix else k)]
+    return [prefix]
+
+
+def lm_reduced_check(torch, np, dev, arch) -> dict:
+    """13a: the reduced config in float32, the card against the CPU:
+    forward, loss and gradients, 4 decode steps, and `LM_REDUCED_STEPS`
+    train steps (microbatched for one arch)."""
+    from repro_torch.configs import common
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import serve_step as ss
+    from repro_torch.train import train_step as tts
+    from repro_torch.tree import tree_map
+    cfg = common.get_arch(arch).reduced_config()
+    p_cpu = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32))
+    out = {}
+    res = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        p = tree_map(lambda t: t.to(d), p_cpu)
+        t = toks.to(d)
+        with torch.no_grad():
+            fwd = tfm.forward(p, t, cfg)
+        loss, grads = lm_loss_grads(torch, tfm, p, t, cfg)
+        cache = ss.make_cache(cfg, 4, 32, device=d)
+        dec = [tfm.decode_step(p, cache, t[:, i:i + 1], i, cfg)[0]
+               for i in range(4)]
+        opt = opt_lib.AdamWConfig(lr=3e-3)
+        micro = 2 if arch == LM_TRAIN_ARCH else None
+        step = tts.make_lm_train_step(cfg, opt, microbatch=micro)
+        state = tts.init_train_state(tree_map(torch.clone, p), opt)
+        losses = []
+        for _ in range(LM_REDUCED_STEPS):
+            state, aux = step(state, {"tokens": t, "targets": t})
+            losses.append(aux["loss"])
+        res[name] = (fwd, loss, grads, torch.stack(dec, 1),
+                     torch.stack(losses))
+    c, k = res["cpu"], res["card"]
+    out["fwd"] = scaled_err(k[0], c[0])
+    out["decode"] = scaled_err(k[3], c[3])
+    out["grad"] = max(scaled_err(a, b) for a, b in zip(k[2], c[2]))
+    out["loss"] = max(float(((k[4].cpu() - c[4]).abs() / c[4].abs()).max()),
+                      abs(float(k[1]) - float(c[1])) / abs(float(c[1])))
+    out["microbatch"] = arch == LM_TRAIN_ARCH
+    out["ok"] = (out["fwd"] <= LM_CARD_TOL["fwd"]
+                 and out["decode"] <= LM_CARD_TOL["fwd"]
+                 and out["grad"] <= LM_CARD_TOL["grad"]
+                 and out["loss"] <= LM_CARD_TOL["loss"])
+    return out
+
+
+def decode_batch(cfg, weights: int, max_len: int) -> int:
+    """The largest power of two ≤ `LM_MAX_BATCH` whose cache at `max_len`
+    and the weights fit in `LM_SERVE_GB`."""
+    from repro_torch.models import transformer as tfm
+    per_seq = tree_bytes(tfm.cache_shapes(cfg, 1, max_len))
+    b = 1
+    while 2 * b <= LM_MAX_BATCH and weights + 2 * b * per_seq \
+            <= LM_SERVE_GB * 1e9:
+        b *= 2
+    return b
+
+
+def fill_cache(torch, cache, upto: int, gen) -> None:
+    """Entries [0, upto) of every cache leaf [L, B, S, ...] from N(0, 1)."""
+    from repro_torch.tree import tree_leaves
+    for leaf in tree_leaves(cache):
+        for layer in leaf:
+            layer[:, :upto].normal_(generator=gen)
+
+
+def lm_decode_run(torch, np, dev, params, cfg, batch: int, ctx: int,
+                  steps: int) -> dict:
+    """`steps` greedy decode steps after a cache of `ctx` entries from a
+    seeded normal draw, at max_len ctx + 512: ms per step by CUDA events,
+    host syncs of the middle step, peak GB, the bytes bound."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import serve_step as ss
+    max_len = ctx + 512
+    torch.cuda.reset_peak_memory_stats()
+    cache = ss.make_cache(cfg, batch, max_len, device=dev)
+    fill_cache(torch, cache, ctx, torch.Generator(device=dev).manual_seed(1))
+    decode = ss.make_decode_step(cfg)
+    tok = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab, (batch, 1)).astype(np.int32)).to(dev)
+    ms, syncs, finite = [], None, True
+    for i in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        if i == steps // 2:
+            box, where = [], []
+            syncs = host_syncs(torch, lambda: box.append(
+                decode(params, cache, tok, ctx + i)), where)
+            logits, cache = box[0]
+        else:
+            logits, cache = decode(params, cache, tok, ctx + i)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        ev[1].record()
+        ms.append(ev)
+        finite &= bool(torch.isfinite(logits).all()) if i == steps - 1 \
+            else True
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in ms]
+    per_pos = tree_bytes(tfm.cache_shapes(cfg, batch, 1))
+    weights = tree_bytes(params)
+    nbytes = weights + per_pos * (ctx + steps // 2)
+    row = dict(batch=batch, ctx=ctx, max_len=max_len, steps=steps, ms=ms,
+               p50_ms=percentile(ms, 0.5), p99_ms=percentile(ms, 0.99),
+               host_syncs=syncs, sync_sources=where, finite=finite,
+               logits_shape=list(logits.shape),
+               cache_gb=tree_bytes(cache) / 1e9, weights_gb=weights / 1e9,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    row["tokens_per_s"] = batch / (row["p50_ms"] / 1e3)
+    del cache
+    return row
+
+
+def lm_serve(torch, np, dev, card, arch) -> dict:
+    """13a at full depth (teacher-forced decode against forward, greedy
+    generate twice and against forward's argmax) and 13b (prefill_32k,
+    decode_32k, long_500k where it fits) on one model."""
+    from repro_torch.configs import common
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import serve_step as ss
+    cfg = lm_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    out = dict(layers=cfg.n_layers, full_layers=common.get_arch(
+        arch).model_config().n_layers, params=cfg.params_count,
+        weights_gb=tree_bytes(params) / 1e9,
+        init_s=time.perf_counter() - t0)
+
+    # --- 13a at full depth ---------------------------------------------------
+    nd = dataclasses.replace(cfg, capacity_factor=LM_NO_DROP)
+    rng = np.random.default_rng(16)
+    b, s = LM_FORCED
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(
+        np.int32)).to(dev)
+    with torch.no_grad():
+        full = tfm.forward(params, toks, nd)
+    cache = ss.make_cache(nd, b, nd.kv_chunk, device=dev)
+    dec = torch.stack([tfm.decode_step(params, cache, toks[:, i:i + 1], i,
+                                       nd)[0] for i in range(s)], 1)
+    del cache
+    forced = rel_l2(dec, full)
+    b, s, n_new = LM_GEN
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(
+        np.int32)).to(dev)
+    g1 = ss.generate(params, nd, prompt, n_new, temperature=0.0)
+    g2 = ss.generate(params, nd, prompt, n_new, temperature=0.0)
+    with torch.no_grad():
+        greedy = torch.argmax(tfm.forward(params, g1[:, :-1], nd)[:, s - 1:],
+                              dim=-1)
+    agree = float((greedy == g1[:, s:]).float().mean())
+    out["check"] = dict(forced_rel_err=forced, forced_tol=LM_FORCED_TOL,
+                        generate_equal=bool(torch.equal(g1, g2)),
+                        generate_agree=agree, agree_min=LM_GEN_AGREE)
+    log(f"phase 13a {arch} full depth ({cfg.n_layers} layers, {card}): "
+        f"teacher-forced decode vs forward rel err {forced:.3e} (limit "
+        f"{LM_FORCED_TOL:.3e}); greedy generate twice equal "
+        f"{out['check']['generate_equal']}, agreement with forward's argmax "
+        f"{agree:.3f} (min {LM_GEN_AGREE})")
+    if not (forced <= LM_FORCED_TOL and out["check"]["generate_equal"]
+            and agree >= LM_GEN_AGREE):
+        raise AssertionError(f"phase 13a {arch}: {out['check']}")
+    del full, dec, g1, g2, greedy
+
+    # --- 13b: prefill_32k, one sequence --------------------------------------
+    sh = common.LM_SHAPES["prefill_32k"]
+    torch.cuda.reset_peak_memory_stats()
+    cache = ss.make_cache(cfg, 1, sh["seq"], device=dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, sh["seq"])).astype(
+        np.int32)).to(dev)
+    prefill = ss.make_prefill_step(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    logits, cache = prefill(params, cache, toks)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    out["prefill_32k"] = dict(
+        batch=1, seq=sh["seq"], ms=ms, tokens_per_s=sh["seq"] / (ms / 1e3),
+        finite=bool(torch.isfinite(logits).all()),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        model_tflop=2 * cfg.active_params_count * sh["seq"] / 1e12)
+    del cache, logits
+    torch.cuda.empty_cache()
+    log(f"phase 13b {arch} prefill_32k ({card}): 1 x {sh['seq']} tokens in "
+        f"{ms:.1f} ms ({out['prefill_32k']['tokens_per_s']:.0f} tokens/s), "
+        f"peak {out['prefill_32k']['peak_gb']:.2f} GB")
+
+    # --- 13b: decode_32k and long_500k ---------------------------------------
+    for shape, steps in (("decode_32k", LM_DECODE_STEPS),
+                         ("long_500k", LM_LONG_STEPS)):
+        if shape == "long_500k" and arch not in LM_LONG:
+            continue
+        ctx = common.LM_SHAPES[shape]["seq"]
+        batch = decode_batch(cfg, tree_bytes(params), ctx + 512)
+        if shape == "long_500k":
+            batch = common.LM_SHAPES[shape]["batch"]
+        row = lm_decode_run(torch, np, dev, params, cfg, batch, ctx, steps)
+        out[shape] = row
+        torch.cuda.empty_cache()
+        log(f"phase 13b {arch} {shape} ({card}): B {batch}, cache "
+            f"{row['cache_gb']:.2f} GB at max_len {row['max_len']}, "
+            f"{steps} greedy steps: p50 {row['p50_ms']:.2f} ms p99 "
+            f"{row['p99_ms']:.2f} ms, {row['tokens_per_s']:.1f} tokens/s; "
+            f"bytes bound {row['bound_ms']:.2f} ms; {row['host_syncs']} host "
+            f"syncs in a step {row['sync_sources']}; peak "
+            f"{row['peak_gb']:.2f} GB")
+        if not row["finite"] or row["logits_shape"] != [batch, cfg.vocab]:
+            raise AssertionError(f"phase 13b {arch} {shape}: {row}")
+    if not out["prefill_32k"]["finite"]:
+        raise AssertionError(f"phase 13b {arch}: prefill logits not finite")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train(torch, np, dev, card) -> dict:
+    """13c: `LM_TRAIN_STEPS` steps of `make_lm_train_step` on the full
+    minitron-4b at train_4k's sequence, batch `LM_TRAIN_BATCH`."""
+    from repro_torch.configs import common
+    from repro_torch.launch.train import synth_lm_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as tts
+    cfg = lm_config(LM_TRAIN_ARCH)
+    seq = common.LM_SHAPES["train_4k"]["seq"]
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    opt = opt_lib.AdamWConfig()
+    state = tts.init_train_state(params, opt)
+    batch = synth_lm_batch(0, LM_TRAIN_BATCH, seq, cfg.vocab, device=dev)
+    step = tts.make_lm_train_step(cfg, opt)
+    opt_events: list = []
+    real_update = opt_lib.adamw_update_
+
+    def timed_update(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = real_update(*args, **kw)
+        ev[1].record()
+        opt_events.append(ev)
+        return res
+
+    ev, losses, syncs, peak = [], [], None, []
+    opt_lib.adamw_update_ = timed_update
+    try:
+        for i in range(LM_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            if i + 1 == LM_TRAIN_STEPS:
+                box, where = [], []
+                syncs = host_syncs(torch, lambda: box.append(
+                    step(state, batch)), where)
+                state, aux = box[0]
+            else:
+                state, aux = step(state, batch)
+            e[1].record()
+            ev.append(e)
+            losses.append(aux["loss"])
+            torch.cuda.synchronize()
+            peak.append(torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        opt_lib.adamw_update_ = real_update
+    step_ms = [a.elapsed_time(b) for a, b in ev]
+    opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+    from repro_torch.tree import tree_leaves
+    n = sum(p.numel() for p in tree_leaves(state["params"]))
+    tokens = LM_TRAIN_BATCH * seq
+    med = statistics.median(step_ms[1:])
+    opt_med = statistics.median(opt_ms[1:])
+    # AdamW reads p, g, m, v and writes p, m, v: 2 + 2 + 4 + 4 + 2 + 4 + 4
+    # bytes a bfloat16 param.
+    opt_bytes = sum(p.numel() * (3 * p.element_size() + 16)
+                    for p in tree_leaves(state["params"]))
+    out = dict(arch=LM_TRAIN_ARCH, batch=LM_TRAIN_BATCH, seq=seq,
+               steps=LM_TRAIN_STEPS, params=n,
+               losses=[float(x) for x in losses], step_ms=step_ms,
+               opt_ms=opt_ms, step_ms_median=med, opt_ms_median=opt_med,
+               fwd_bwd_ms=med - opt_med,
+               opt_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
+               mfu=6 * cfg.params_count * tokens / (med / 1e3) / LM_BF16_PEAK,
+               tokens_per_s=tokens / (med / 1e3), host_syncs=syncs,
+               sync_sources=where, step_peak_gb=peak, peak_gb=max(peak))
+    log(f"phase 13c train {LM_TRAIN_ARCH} ({card}): B {LM_TRAIN_BATCH} x "
+        f"{seq}, {n} params: losses {[round(x, 4) for x in out['losses']]}; "
+        f"step {med:.1f} ms (median of 2-{LM_TRAIN_STEPS}), fwd+bwd "
+        f"{out['fwd_bwd_ms']:.1f} ms, optimiser {opt_med:.2f} ms (bound "
+        f"{out['opt_bound_ms']:.2f}); mfu {out['mfu']:.3f}; "
+        f"{syncs} host syncs in step {LM_TRAIN_STEPS} {where}; peak "
+        f"{out['peak_gb']:.2f} GB")
+    if not all(np.isfinite(out["losses"])) or syncs:
+        raise AssertionError(f"phase 13c: {out}")
+    del state, params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_lm(torch, np, dev, card) -> dict:
+    """Phase 13: the five LMs, one model at a time (13a, 13b), then
+    minitron-4b's train steps (13c)."""
+    t_phase = time.perf_counter()
+    out = {"card": card, "bf16": {}, "reduced": {}, "serve": {}}
+    for arch in LM_ARCHS:
+        red = lm_reduced_check(torch, np, dev, arch)
+        out["reduced"][arch] = red
+        log(f"phase 13a {arch} reduced float32, card against the CPU "
+            f"({card}): forward {red['fwd']:.2e}, decode {red['decode']:.2e},"
+            f" gradients {red['grad']:.2e} (of the largest |value|), losses "
+            f"{red['loss']:.2e} (relative)"
+            f"{'; microbatched' if red['microbatch'] else ''}")
+        if not red["ok"]:
+            raise AssertionError(f"phase 13a {arch} reduced: {red}")
+    for arch in LM_ARCHS:
+        row = lm_bf16_check(torch, np, dev, card, arch)
+        out["bf16"][arch] = row
+        torch.cuda.empty_cache()
+        if not row["ok"]:
+            raise AssertionError(f"phase 13a {arch}: bfloat16 against float32"
+                                 f" past its limits: {row}")
+    for arch in LM_ARCHS:
+        out["serve"][arch] = lm_serve(torch, np, dev, card, arch)
+    out["train"] = lm_train(torch, np, dev, card)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 ({card}): {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2654,6 +3196,14 @@ def main() -> int:
     if any(gnn_row["launches"].values()):
         raise AssertionError(f"phase 12a/b: a GNN launched a hand-written "
                              f"kernel: {gnn_row['launches']}")
+
+    # --- 13. the transformer LMs (next, while the card is empty) -------------
+    reset_launches()
+    lm_row = run_lm(torch, np, dev, card)
+    lm_row["launches"] = read_launches()
+    if any(lm_row["launches"].values()):
+        raise AssertionError(f"phase 13: an LM launched a hand-written "
+                             f"kernel: {lm_row['launches']}")
 
     # --- 3. the main path ------------------------------------------------------
     t0 = time.perf_counter()
@@ -2937,7 +3487,7 @@ def main() -> int:
         dump_role_logs(REPLICA_DIR / "logs")
         raise
 
-    # --- 13. the kernels line and the summary --------------------------------
+    # --- 14. the kernels line and the summary --------------------------------
     key2_row = sweep_rows[2]
     kernels = [
         dict(name="relax_sweep", route="cuda",
@@ -2987,7 +3537,7 @@ def main() -> int:
                    frontier=frontier, edge_relax=er_row, embed_bag=bag_rows,
                    serve=serve, directed=directed, autotune=autotune,
                    replica=replica_tier, sharded=sharded, mind=mind_row,
-                   gnn=gnn_row, sampler=sampler_row,
+                   gnn=gnn_row, sampler=sampler_row, lm=lm_row,
                    profiler_short_passes=short_passes,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")

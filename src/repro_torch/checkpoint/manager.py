@@ -4,10 +4,17 @@ The port of `repro.checkpoint.manager`, with the same on-disk format, so
 each package restores the other's checkpoints:
 
   * a step is a directory ``step_<n>`` holding one ``.npy`` per leaf and a
-    ``manifest.json`` ``{"step": n, "leaves": [names]}``. A tree is a dict
-    (nested dicts allowed) of tensors, numpy arrays or numpy scalars;
-    leaves are named and written in sorted key order, nested keys joined
-    by ``__`` — the order and names JAX's tree flattening gives a dict;
+    ``manifest.json`` ``{"step": n, "leaves": [names]}``. A tree is nested
+    dicts and lists (`repro_torch.tree`) of tensors, numpy arrays or numpy
+    scalars; leaves are written in JAX's flatten order (a dict's keys
+    sorted, a list's indices in order) and named by their path, dict keys
+    and list indices joined by ``__`` — the reference's `_key_str`. A flat
+    dict is a tree of depth 1, each leaf named by its key;
+  * a bfloat16 leaf is written as the reference writes one: its 16-bit
+    patterns under the descr ``<V2`` that `ml_dtypes.bfloat16` gives, so
+    the file's bytes equal the reference's (`ml_dtypes` is not needed:
+    the header is written by hand). `restore` reads such bits, ``V2`` or
+    ``uint16``, back into a bfloat16 template;
   * `save(step)` writes every leaf under ``.tmp_step_<n>``, fsyncs each
     leaf, the manifest and the directory, then renames it to ``step_<n>``
     and fsyncs the parent: a rename that survives a crash implies the
@@ -31,23 +38,45 @@ from repro_torch.device import resolve_device
 CURRENT = "CURRENT"
 
 
+def _join(prefix: str, key) -> str:
+    return f"{prefix}__{key}" if prefix else str(key)
+
+
 def _flatten(tree, prefix: str = "") -> list[tuple[str, object]]:
-    """(name, leaf) pairs of a dict tree in sorted key order."""
-    out = []
-    for key in sorted(tree):
-        name = f"{prefix}__{key}" if prefix else str(key)
-        val = tree[key]
-        if isinstance(val, dict):
-            out += _flatten(val, name)
-        else:
-            out.append((name, val))
-    return out
+    """(name, leaf) pairs of a tree of dicts and lists in JAX's flatten
+    order, named as the reference's `_key_str` names them."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flatten(tree[k],
+                                                        _join(prefix, k))]
+    if isinstance(tree, list):
+        return [x for i, t in enumerate(tree)
+                for x in _flatten(t, _join(prefix, i))]
+    return [(prefix, tree)]
 
 
-def _to_numpy(leaf) -> np.ndarray:
+def _save_leaf(path: str, leaf) -> None:
+    if torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16:
+        bits = leaf.detach().cpu().contiguous().view(torch.int16).numpy()
+        with open(path, "wb") as f:
+            np.lib.format.write_array_header_1_0(
+                f, {"descr": "<V2", "fortran_order": False,
+                    "shape": bits.shape})
+            f.write(bits.tobytes())
+        return
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().cpu().numpy()
+    np.save(path, np.asarray(leaf))
+
+
+def _load_leaf(path: str, like, device: torch.device) -> torch.Tensor:
+    arr = np.load(path)
+    dtype = like.dtype if torch.is_tensor(like) else None
+    if dtype == torch.bfloat16 and arr.dtype.itemsize == 2 and (
+            arr.dtype.kind == "V" or arr.dtype.name in ("uint16",
+                                                        "bfloat16")):
+        return torch.from_numpy(np.ascontiguousarray(arr).view(
+            np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
 def _fsync_path(path: str) -> None:
@@ -85,7 +114,7 @@ def read_json(path: str) -> dict | None:
         return None
 
 
-def save(ckpt_dir: str, step: int, tree: dict) -> str:
+def save(ckpt_dir: str, step: int, tree) -> str:
     """Atomically persist `tree` as ``step_<step>``; returns its path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
@@ -96,7 +125,7 @@ def save(ckpt_dir: str, step: int, tree: dict) -> str:
     manifest = []
     for name, leaf in _flatten(tree):
         leaf_path = os.path.join(tmp, name + ".npy")
-        np.save(leaf_path, _to_numpy(leaf))
+        _save_leaf(leaf_path, leaf)
         _fsync_path(leaf_path)
         manifest.append(name)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -153,11 +182,12 @@ def load_leaves(ckpt_dir: str, step: int, names: tuple[str, ...] | None = None,
     return out
 
 
-def restore(ckpt_dir: str, tree_like: dict, step: int | None = None, *,
-            device: str | torch.device | None = None) -> tuple[dict, int]:
-    """Restore a flat dict of tensors shaped like `tree_like` onto `device`
-    (None: the GPU, raising without one), each leaf cast to its template's
-    dtype; returns (tree, step).
+def restore(ckpt_dir: str, tree_like, step: int | None = None, *,
+            device: str | torch.device | None = None) -> tuple[object, int]:
+    """Restore a tree of `tree_like`'s structure (nested dicts and lists)
+    onto `device` (None: the GPU, raising without one), each leaf read
+    from the file its path names and cast to its template's dtype;
+    returns (tree, step).
 
     Every leaf lands on the one `device`. The reference places leaves on
     a mesh (`shardings`); the port's mesh runs keep their labelling
@@ -169,12 +199,14 @@ def restore(ckpt_dir: str, tree_like: dict, step: int | None = None, *,
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     d = step_dir(ckpt_dir, step)
-    out = {}
-    for name, leaf in tree_like.items():
-        arr = np.load(os.path.join(d, name + ".npy"))
-        dtype = leaf.dtype if torch.is_tensor(leaf) else None
-        out[name] = torch.from_numpy(arr).to(device=device, dtype=dtype)
-    return out, step
+
+    def build(like, name: str):
+        if isinstance(like, dict):
+            return {k: build(v, _join(name, k)) for k, v in like.items()}
+        if isinstance(like, list):
+            return [build(v, _join(name, i)) for i, v in enumerate(like)]
+        return _load_leaf(os.path.join(d, name + ".npy"), like, device)
+    return build(tree_like, ""), step
 
 
 # ---------------------------------------------------------------------------

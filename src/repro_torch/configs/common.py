@@ -1,12 +1,19 @@
 """Config plumbing: the arch registry and the per-shape input sizes.
 
-The part of `repro.configs.common` that the ported archs need: the GNN
-and MIND shapes and `get_arch` (`Cell`, `gnn_cell` and `build_cell` are
-still to be ported).
+The part of `repro.configs.common` that the ported archs need: the LM,
+GNN and MIND shapes and `get_arch` (`Cell`, the `*_cell` builders and
+`build_cell` are still to be ported).
 """
 from __future__ import annotations
 
 import importlib
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
 
 # n_pad/e2_pad: node/edge arrays padded to multiples of 512 so every mesh
 # (256 or 512 devices) shards them evenly; validity masks carry true sizes.

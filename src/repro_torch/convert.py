@@ -11,7 +11,8 @@ are the reference's: int32 ids, distances and weights, bool flags.
 
 For the models, `params_*` carry any nested dict or list of arrays (a JAX
 params tree; `repro_torch.tree` says which nodes there are) leaf by leaf
-with its dtype, and `train_state_*` a train state
+with its dtype (bfloat16 by its 16-bit patterns, without `ml_dtypes`),
+and `train_state_*` a train state
 `{"params", "opt": {"m", "v", "step"[, "ef"]}}` (`step` an int32 scalar).
 """
 from __future__ import annotations
@@ -95,16 +96,34 @@ def directed_labelling_to_numpy(lab: DirectedLabelling) -> tuple:
     return labelling_to_numpy(lab.fwd), labelling_to_numpy(lab.bwd)
 
 
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    a = np.array(a)  # a copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
 def params_from_numpy(tree, *, device: str | torch.device):
     """Nested dicts and lists of array-likes → the same tree of tensors
-    on `device`, each leaf with its own dtype."""
-    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+    on `device`, each leaf with its own dtype. A bfloat16 leaf (dtype
+    name "bfloat16", as JAX's arrays give it through `ml_dtypes`) is
+    taken by its 16-bit patterns."""
+    return tree_map(lambda a: _leaf_from_numpy(a, device), tree)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return _np(t.view(torch.uint16))
+    return _np(t)
 
 
 def params_to_numpy(tree):
     """Nested dicts and lists of tensors → the same tree of numpy
-    arrays."""
-    return tree_map(_np, tree)
+    arrays. A bfloat16 leaf comes back as its 16-bit patterns, dtype
+    uint16 (numpy has no bfloat16 without `ml_dtypes`): a JAX caller
+    takes it as `jnp.asarray(bits).view(jnp.bfloat16)`."""
+    return tree_map(_leaf_to_numpy, tree)
 
 
 def _check_train_state(state) -> None:

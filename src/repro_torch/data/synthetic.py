@@ -1,7 +1,7 @@
 """Stateless-seeded synthetic data: batch = f(layout, seed).
 
-The port of `repro.data.synthetic`'s `materialize`, the GNN and MIND
-layouts and `coherent_gnn_batch`. A layout is a dict name -> (shape
+The port of `repro.data.synthetic`'s `materialize`, the LM, GNN and
+MIND layouts and `coherent_gnn_batch`. A layout is a dict name -> (shape
 tuple, torch dtype, kind), kind in {"tokens:<vocab>", "ids:<max>",
 "float", "bool", "pos", "angle", "zeros"}. `materialize` and
 `coherent_gnn_batch` draw with the reference's
@@ -46,8 +46,23 @@ def materialize(layout: dict, seed: int = 0, *,
 
 
 # ---------------------------------------------------------------------------
-# GNN and MIND layouts
+# layouts per family
 # ---------------------------------------------------------------------------
+
+def lm_train_layout(batch: int, seq: int, vocab: int) -> dict:
+    return {
+        "tokens": ((batch, seq), torch.int32, f"tokens:{vocab}"),
+        "targets": ((batch, seq), torch.int32, f"tokens:{vocab}"),
+    }
+
+
+def lm_decode_layout(batch: int, vocab: int) -> dict:
+    return {"tokens": ((batch, 1), torch.int32, f"tokens:{vocab}")}
+
+
+def lm_prefill_layout(batch: int, seq: int, vocab: int) -> dict:
+    return {"tokens": ((batch, seq), torch.int32, f"tokens:{vocab}")}
+
 
 def gnn_layout(arch: str, n_nodes: int, n_edges_directed: int, d_feat: int,
                d_out: int, n_graphs: int | None = None,

@@ -4,7 +4,11 @@ A snapshot saved by `repro` restores in the port and the port's save of
 the same state restores in `repro`, with equal leaves both ways; the two
 `step_<v>` trees are byte-identical file by file (`.npy` and
 `manifest.json`). Also the full-state contract (graph slots, the weight
-column, named errors for older formats) and the publish/prune protocol.
+column, named errors for older formats), the publish/prune protocol,
+nested trees of dicts and lists under the reference's key-path names
+(restored in either package), and bfloat16 leaves: through `convert` by
+their bits, and in checkpoints byte for byte as the reference writes
+them.
 """
 from __future__ import annotations
 
@@ -180,3 +184,95 @@ def test_publish_and_prune_protect_the_published_range(tmp_path):
     tckpt.write_json_atomic(os.path.join(d, "ack.json"), {"v": 1})
     assert tckpt.read_json(os.path.join(d, "ack.json")) == {"v": 1}
     assert not os.path.exists(os.path.join(d, "ack.json.tmp"))
+
+
+# --- nested trees and bfloat16 leaves ---------------------------------------
+
+def _nested_np() -> dict:
+    rng = np.random.default_rng(5)
+    return {"p": {"embed": rng.normal(size=(4, 3)).astype(np.float32),
+                  "layers": [rng.normal(size=(2,)).astype(np.float32),
+                             {"w": np.arange(6, dtype=np.int32).reshape(2,
+                                                                        3)}]},
+            "opt": {"step": np.int32(2),
+                    "m": [np.zeros(3, np.float32), np.ones(1, np.float32)]}}
+
+
+def test_nested_tree_names_and_restore_match_reference(tmp_path):
+    """Nested dicts and lists are saved under the reference's key-path
+    names, byte for byte, and restore into a tree of the template's
+    structure in either package."""
+    import jax
+    import jax.numpy as jnp
+    tree = _nested_np()
+    tckpt.save(str(tmp_path / "t"), 2, cv.params_from_numpy(tree,
+                                                            device="cpu"))
+    jckpt.save(str(tmp_path / "j"), 2, jax.tree.map(jnp.asarray, tree))
+    names = ["opt__m__0", "opt__m__1", "opt__step", "p__embed",
+             "p__layers__0", "p__layers__1__w"]
+    assert tckpt.step_manifest(str(tmp_path / "t"), 2)["leaves"] == names
+    assert jckpt.step_manifest(str(tmp_path / "j"), 2)["leaves"] == names
+    for name in names + ["manifest"]:
+        ext = ".json" if name == "manifest" else ".npy"
+        assert filecmp.cmp(tmp_path / "t" / "step_2" / (name + ext),
+                           tmp_path / "j" / "step_2" / (name + ext),
+                           shallow=False), name
+    like = cv.params_from_numpy(jax.tree.map(np.zeros_like, tree),
+                                device="cpu")
+    back, step = tckpt.restore(str(tmp_path / "j"), like, device="cpu")
+    assert step == 2 and isinstance(back["p"]["layers"], list)
+    assert back["p"]["layers"][1]["w"].dtype == torch.int32
+    assert back["opt"]["step"].shape == () and int(back["opt"]["step"]) == 2
+    for got, want in zip(jax.tree_util.tree_leaves(cv.params_to_numpy(back)),
+                         jax.tree_util.tree_leaves(tree)):
+        np.testing.assert_array_equal(got, want)
+    jback, _ = jckpt.restore(str(tmp_path / "t"),
+                             jax.tree.map(jnp.zeros_like, tree))
+    for got, want in zip(jax.tree_util.tree_leaves(jback),
+                         jax.tree_util.tree_leaves(tree)):
+        np.testing.assert_array_equal(np.asarray(got), want)
+
+
+def test_bfloat16_through_convert():
+    """A JAX bfloat16 array (numpy dtype `ml_dtypes.bfloat16`) becomes a
+    torch bfloat16 tensor with the same bits, and comes back as uint16
+    bits."""
+    import jax.numpy as jnp
+    vals = np.random.default_rng(6).normal(size=(3, 5)).astype(np.float32)
+    j = jnp.asarray(vals).astype(jnp.bfloat16)
+    t = cv.params_from_numpy({"w": np.asarray(j)}, device="cpu")["w"]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(),
+                                  np.asarray(j.astype(jnp.float32)))
+    bits = cv.params_to_numpy({"w": t})["w"]
+    assert bits.dtype == np.uint16
+    np.testing.assert_array_equal(bits, np.asarray(j).view(np.uint16))
+    np.testing.assert_array_equal(
+        np.asarray(jnp.asarray(bits).view(jnp.bfloat16)), np.asarray(j))
+
+
+def test_bfloat16_checkpoint_bytes_match_reference(tmp_path):
+    """The port writes a bfloat16 leaf as the reference's file, byte for
+    byte (descr `<V2`), and reads such a file, or uint16 bits, back into
+    a bfloat16 template."""
+    import jax.numpy as jnp
+    vals = np.random.default_rng(7).normal(size=(4, 6)).astype(np.float32)
+    j = jnp.asarray(vals).astype(jnp.bfloat16)
+    t = torch.from_numpy(vals).to(torch.bfloat16)
+    tckpt.save(str(tmp_path / "t"), 1, {"w": t, "n": {"b": t[0]}})
+    jckpt.save(str(tmp_path / "j"), 1, {"w": j, "n": {"b": j[0]}})
+    for name in ("w", "n__b", "manifest"):
+        ext = ".json" if name == "manifest" else ".npy"
+        assert filecmp.cmp(tmp_path / "t" / "step_1" / (name + ext),
+                           tmp_path / "j" / "step_1" / (name + ext),
+                           shallow=False), name
+    like = {"w": torch.zeros(4, 6, dtype=torch.bfloat16),
+            "n": {"b": torch.zeros(6, dtype=torch.bfloat16)}}
+    for d in ("t", "j"):
+        back, _ = tckpt.restore(str(tmp_path / d), like, device="cpu")
+        assert back["w"].dtype == torch.bfloat16
+        assert torch.equal(back["w"], t) and torch.equal(back["n"]["b"], t[0])
+    np.save(tmp_path / "t" / "step_1" / "w.npy",
+            t.view(torch.uint16).numpy())
+    back, _ = tckpt.restore(str(tmp_path / "t"), like, device="cpu")
+    assert torch.equal(back["w"], t)

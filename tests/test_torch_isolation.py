@@ -30,10 +30,15 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.graphs.sampler, repro_torch.graphs.segment, "
             "repro_torch.gather, repro_torch.configs.schnet, "
             "repro_torch.configs.dimenet, repro_torch.configs.mace, "
-            "repro_torch.configs.graphcast; "
+            "repro_torch.configs.graphcast, repro_torch.models.transformer, "
+            "repro_torch.models.moe, repro_torch.train.serve_step, "
+            "repro_torch.launch.train, repro_torch.configs.gemma2_9b, "
+            "repro_torch.configs.minitron_4b, repro_torch.configs.granite_8b, "
+            "repro_torch.configs.deepseek_v2_lite_16b, "
+            "repro_torch.configs.mixtral_8x22b; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
-            "or m.startswith('repro.')]; print(bad)")
+            "or m.startswith('repro.') or m == 'ml_dtypes']; print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120,
@@ -45,6 +50,8 @@ def test_import_leaves_jax_and_repro_out():
 def test_no_jax_or_repro_import_in_source(path):
     text = path.read_text()
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
+    assert not re.search(r"^\s*(import ml_dtypes|from ml_dtypes)", text,
+                         re.M)
     assert not re.search(r"^\s*(from repro[ .]|import repro\b(?!_))", text,
                          re.M)
 
