@@ -199,15 +199,17 @@
    greedy `generate` run twice (equal) and against forward's argmax (at
    least 0.75 agreeing, the reference test's bound). b: prefill_32k
    (one sequence of 32,768 tokens), decode_32k (cache at max_len 33,280
-   from a seeded normal draw at cache_len 32,768, 16 greedy steps, the
-   batch the largest power of two whose weights and cache fit in 68 GB),
-   and DeepSeek at long_500k (max_len 524,800, 4 steps): ms per step
-   (CUDA events), tokens/s, the bytes bound (weights plus the cache read
-   over 3.35 TB/s), host syncs of a step, peak memory. c: 6 steps of
+   from a seeded normal draw at cache_len 32,768, a warm-up step and 16
+   greedy steps, the batch the largest power of two whose weights and
+   cache fit in 68 GB), and DeepSeek at long_500k (max_len 524,800, 4
+   steps): ms per step (CUDA events, p50 and p99 of the warmed steps),
+   tokens/s, the bytes a step needs over 3.35 TB/s (`decode_bytes`),
+   host syncs of a step, peak memory. c: 6 steps of
    `make_lm_train_step` on the full minitron-4b at train_4k's sequence
    4096 and batch 2: losses finite, step ms (median of steps 2–6),
    forward + backward against the optimiser and its bytes bound, MFU
-   against 989.4 TFLOP/s, host syncs of step 6 (must be 0), peak memory.
+   against 989.4 TFLOP/s (6·N·tokens, and `lm_train_flops`), host syncs
+   of step 6 (must be 0), peak memory.
    The kernels' launch counts are set to 0 before the phase and must
    read 0 after it: the reference's LMs reach no Pallas kernel.
 14. Prints a `summary:` line with every number above as JSON, the
@@ -2871,11 +2873,39 @@ def fill_cache(torch, cache, upto: int, gen) -> None:
             layer[:, :upto].normal_(generator=gen)
 
 
+def decode_bytes(tfm, cfg, params, batch: int, n_valid: int,
+                 experts: list) -> int:
+    """The bytes a decode step of `batch` tokens must move with `n_valid`
+    cache entries: every weight but the embedding table, of which the
+    batch's rows; of MoE layer i's routed experts only the `experts[i]`
+    its tokens chose; each layer's valid cache entries, a sliding-window
+    layer's at most `window` of them; the logits written."""
+    def size(a):
+        return a.numel() * a.element_size()
+    n = sum(size(a) for k, a in params.items()
+            if k not in ("embed", "dense_layers", "moe_layers"))
+    n += batch * size(params["embed"][0])
+    n += sum(size(a) for a in params.get("dense_layers", {}).values())
+    for k, a in params.get("moe_layers", {}).items():
+        if k in ("w_gate", "w_up", "w_down"):   # [L, E, ...]
+            n += sum(size(a[0]) // cfg.n_experts * used for used in experts)
+        else:
+            n += size(a)
+    per_entry = tree_bytes(tfm.cache_shapes(cfg, batch, 1)) // cfg.n_layers
+    n += per_entry * sum(min(n_valid, cfg.window) if local else n_valid
+                         for local in tfm._is_local_flags(cfg, cfg.n_layers,
+                                                          0))
+    return n + batch * cfg.vocab * params["lm_head"].element_size()
+
+
 def lm_decode_run(torch, np, dev, params, cfg, batch: int, ctx: int,
                   steps: int) -> dict:
-    """`steps` greedy decode steps after a cache of `ctx` entries from a
-    seeded normal draw, at max_len ctx + 512: ms per step by CUDA events,
-    host syncs of the middle step, peak GB, the bytes bound."""
+    """One untimed warm-up step, then `steps` greedy decode steps after a
+    cache of `ctx` entries from a seeded normal draw, at max_len ctx +
+    512: ms per step by CUDA events (p50 and p99 over the timed steps),
+    host syncs of the middle step, peak GB, and the middle step's bytes
+    bound (`decode_bytes`, its experts read off its routes)."""
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
     from repro_torch.train import serve_step as ss
     max_len = ctx + 512
@@ -2885,17 +2915,21 @@ def lm_decode_run(torch, np, dev, params, cfg, batch: int, ctx: int,
     decode = ss.make_decode_step(cfg)
     tok = torch.from_numpy(np.random.default_rng(15).integers(
         0, cfg.vocab, (batch, 1)).astype(np.int32)).to(dev)
-    ms, syncs, finite = [], None, True
+    logits, cache = decode(params, cache, tok, ctx)          # warm-up
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    ms, syncs, finite, mid = [], None, True, steps // 2
     for i in range(steps):
+        pos = ctx + 1 + i
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        if i == steps // 2:
+        if i == mid:
             box, where = [], []
-            syncs = host_syncs(torch, lambda: box.append(
-                decode(params, cache, tok, ctx + i)), where)
+            with ReplayRoute(torch, moe) as routes:
+                syncs = host_syncs(torch, lambda: box.append(
+                    decode(params, cache, tok, pos)), where)
             logits, cache = box[0]
         else:
-            logits, cache = decode(params, cache, tok, ctx + i)
+            logits, cache = decode(params, cache, tok, pos)
         tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         ev[1].record()
         ms.append(ev)
@@ -2903,14 +2937,15 @@ def lm_decode_run(torch, np, dev, params, cfg, batch: int, ctx: int,
             else True
     torch.cuda.synchronize()
     ms = [a.elapsed_time(b) for a, b in ms]
-    per_pos = tree_bytes(tfm.cache_shapes(cfg, batch, 1))
-    weights = tree_bytes(params)
-    nbytes = weights + per_pos * (ctx + steps // 2)
+    experts = [int(torch.unique(ids).numel()) for ids in routes.ids]
+    nbytes = decode_bytes(tfm, cfg, params, batch, ctx + 2 + mid, experts)
     row = dict(batch=batch, ctx=ctx, max_len=max_len, steps=steps, ms=ms,
                p50_ms=percentile(ms, 0.5), p99_ms=percentile(ms, 0.99),
                host_syncs=syncs, sync_sources=where, finite=finite,
-               logits_shape=list(logits.shape),
-               cache_gb=tree_bytes(cache) / 1e9, weights_gb=weights / 1e9,
+               logits_shape=list(logits.shape), experts_read=experts,
+               cache_gb=tree_bytes(cache) / 1e9,
+               weights_gb=tree_bytes(params) / 1e9,
+               bound_gb=nbytes / 1e9,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     row["tokens_per_s"] = batch / (row["p50_ms"] / 1e3)
@@ -2993,7 +3028,7 @@ def lm_serve(torch, np, dev, card, arch) -> dict:
     del cache, logits
     torch.cuda.empty_cache()
     log(f"phase 13b {arch} prefill_32k ({card}): 1 x {sh['seq']} tokens in "
-        f"{ms:.1f} ms ({out['prefill_32k']['tokens_per_s']:.0f} tokens/s), "
+        f"{ms:.1f} ms, one call, the first at this shape ({out['prefill_32k']['tokens_per_s']:.0f} tokens/s), "
         f"peak {out['prefill_32k']['peak_gb']:.2f} GB")
 
     # --- 13b: decode_32k and long_500k ---------------------------------------
@@ -3010,9 +3045,11 @@ def lm_serve(torch, np, dev, card, arch) -> dict:
         torch.cuda.empty_cache()
         log(f"phase 13b {arch} {shape} ({card}): B {batch}, cache "
             f"{row['cache_gb']:.2f} GB at max_len {row['max_len']}, "
-            f"{steps} greedy steps: p50 {row['p50_ms']:.2f} ms p99 "
-            f"{row['p99_ms']:.2f} ms, {row['tokens_per_s']:.1f} tokens/s; "
-            f"bytes bound {row['bound_ms']:.2f} ms; {row['host_syncs']} host "
+            f"{steps} greedy steps after a warm-up step: p50 "
+            f"{row['p50_ms']:.2f} ms p99 {row['p99_ms']:.2f} ms, "
+            f"{row['tokens_per_s']:.1f} tokens/s; bytes bound "
+            f"{row['bound_ms']:.2f} ms ({row['bound_gb']:.2f} GB, routed "
+            f"experts read {row['experts_read']}); {row['host_syncs']} host "
             f"syncs in a step {row['sync_sources']}; peak "
             f"{row['peak_gb']:.2f} GB")
         if not row["finite"] or row["logits_shape"] != [batch, cfg.vocab]:
@@ -3022,6 +3059,15 @@ def lm_serve(torch, np, dev, card, arch) -> dict:
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def lm_train_flops(cfg, seq: int) -> float:
+    """Model FLOPs a trained token (PaLM, arXiv:2204.02311, App. B): 6
+    a weight that enters a product (all but the input embedding table,
+    a lookup) and 12·L·H·d_head·seq for the attention's scores and
+    values, forward and backward, the causal mask not halving it."""
+    return (6 * (cfg.params_count - cfg.vocab * cfg.d_model)
+            + 12 * cfg.n_layers * cfg.n_heads * cfg.d_head * seq)
 
 
 def lm_train(torch, np, dev, card) -> dict:
@@ -3093,13 +3139,17 @@ def lm_train(torch, np, dev, card) -> dict:
                fwd_bwd_ms=med - opt_med,
                opt_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
                mfu=6 * cfg.params_count * tokens / (med / 1e3) / LM_BF16_PEAK,
+               mfu_palm=lm_train_flops(cfg, seq) * tokens / (med / 1e3)
+               / LM_BF16_PEAK,
                tokens_per_s=tokens / (med / 1e3), host_syncs=syncs,
                sync_sources=where, step_peak_gb=peak, peak_gb=max(peak))
     log(f"phase 13c train {LM_TRAIN_ARCH} ({card}): B {LM_TRAIN_BATCH} x "
         f"{seq}, {n} params: losses {[round(x, 4) for x in out['losses']]}; "
         f"step {med:.1f} ms (median of 2-{LM_TRAIN_STEPS}), fwd+bwd "
         f"{out['fwd_bwd_ms']:.1f} ms, optimiser {opt_med:.2f} ms (bound "
-        f"{out['opt_bound_ms']:.2f}); mfu {out['mfu']:.3f}; "
+        f"{out['opt_bound_ms']:.2f}); mfu {out['mfu']:.3f} (6·N), "
+        f"{out['mfu_palm']:.3f} (6·N without the embedding table + "
+        f"attention); "
         f"{syncs} host syncs in step {LM_TRAIN_STEPS} {where}; peak "
         f"{out['peak_gb']:.2f} GB")
     if not all(np.isfinite(out["losses"])) or syncs:

@@ -10,7 +10,14 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     `None` means the GPU: it raises when no CUDA device is present rather
     than falling back to the CPU. Callers that want the CPU (the tests,
     which use the kernels' plain versions) pass `device="cpu"`.
+
+    It also turns off cuBLAS's reduced-precision reduction of bfloat16
+    products (on by default in PyTorch), so that the split-K partial
+    sums of the port's bfloat16 GEMMs add in float32, as the reference's
+    `preferred_element_type=float32` products do.
     """
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

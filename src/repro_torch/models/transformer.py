@@ -308,8 +308,10 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w in their common dtype, accumulated in float32 (as cuBLAS and
-    the CPU's GEMMs do for bfloat16)."""
+    """x @ w in their common dtype, accumulated in float32: the CPU's
+    bfloat16 GEMMs do, and on the card `device.resolve_device`, which
+    `init_params` and `make_cache` call, has turned cuBLAS's
+    reduced-precision (bfloat16) split-K reduction off."""
     return torch.matmul(x, w)
 
 

@@ -10,12 +10,12 @@ params, `step` an int32 scalar tensor, so `convert` carries it across.
 
 Everything runs where the tensors are and reads nothing back to the
 host: the norm, the clip and the bias corrections stay on the device.
-Each elementwise step is the reference's arithmetic in its order; the
-update writes into fresh temporaries in place to keep their count low.
-`adamw_update_` is the same arithmetic with the same bits, written into
-the params, m and v themselves, a slice of `INPLACE_SLICE` elements at
-a time: a full-width LM's state (50.3 GB for 4.19 B bfloat16 params)
-has no room for a second copy on one card.
+Each elementwise step is the reference's arithmetic in its order, run
+a slice of `INPLACE_SLICE` elements at a time and written into given
+tensors: fresh ones in `adamw_update`, which leaves its inputs as they
+were, or the params, m and v themselves in `adamw_update_`, since a
+full-width LM's state (50.3 GB for 4.19 B bfloat16 params) has no room
+for a second copy on one card.
 """
 from __future__ import annotations
 
@@ -94,7 +94,7 @@ def _quantize_int8_ef(grads: Any, ef: Any) -> tuple[Any, Any]:
     return tree_map(lambda t: t[0], pairs), tree_map(lambda t: t[1], pairs)
 
 
-#: Elements of one slice of `adamw_update_` (1 GB of each float32
+#: Elements of one slice of an AdamW update (1 GB of each float32
 #: temporary).
 INPLACE_SLICE = 1 << 28
 
@@ -115,21 +115,38 @@ def _prepare(grads: Any, state: dict, cfg: AdamWConfig):
 
 
 def _leaf_update(p, g, m, v, cfg: AdamWConfig, clip, bc1, bc2,
-                 inplace: bool):
-    """(p_new in float32, m_new, v_new); with `inplace` m and v are
-    updated where they are."""
+                 p_out, m_out, v_out) -> None:
+    """The new p, m and v into p_out, m_out and v_out, which may be p, m
+    and v themselves."""
     g = g.to(torch.float32) * clip
-    m_new = (m.mul_(cfg.b1) if inplace else m * cfg.b1).add_(
-        g * (1 - cfg.b1))
-    v_new = (v.mul_(cfg.b2) if inplace else v * cfg.b2).add_(
-        (g * (1 - cfg.b2)).mul_(g))
+    torch.mul(m, cfg.b1, out=m_out).add_(g * (1 - cfg.b1))
+    torch.mul(v, cfg.b2, out=v_out).add_((g * (1 - cfg.b2)).mul_(g))
     del g
-    denom = (v_new / bc2).sqrt_().add_(cfg.eps)
-    delta = (m_new / bc1).div_(denom)
+    denom = (v_out / bc2).sqrt_().add_(cfg.eps)
+    delta = (m_out / bc1).div_(denom)
     del denom
     pf = p.to(torch.float32)
     delta.add_(pf * cfg.weight_decay)
-    return pf - delta.mul_(cfg.lr), m_new, v_new
+    torch.sub(pf, delta.mul_(cfg.lr), out=p_out)
+
+
+def _update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
+            out: tuple) -> dict:
+    """One AdamW step into `out` = (params, m, v) trees of contiguous
+    tensors; returns the state's new `step` (and `ef`)."""
+    grads, new_ef, clip, step, bc1, bc2 = _prepare(grads, state, cfg)
+    leaves = [tree_leaves(t) for t in (params, grads, state["m"],
+                                       state["v"], *out)]
+    for tensors in zip(*leaves):
+        if not all(t.is_contiguous() for t in tensors[4:]):
+            raise ValueError("AdamW writes contiguous params, m and v")
+        for sl in zip(*(t.reshape(-1).split(INPLACE_SLICE)
+                        for t in tensors)):
+            _leaf_update(*sl[:4], cfg, clip, bc1, bc2, *sl[4:])
+    new = {"step": step}
+    if new_ef is not None:
+        new["ef"] = new_ef
+    return new
 
 
 @torch.no_grad()
@@ -137,42 +154,22 @@ def adamw_update(params: Any, grads: Any, state: dict,
                  cfg: AdamWConfig) -> tuple[Any, dict]:
     """One AdamW step: (new params, new state). The inputs are left as
     they were."""
-    grads, new_ef, clip, step, bc1, bc2 = _prepare(grads, state, cfg)
-
-    def upd(p, g, m, v):
-        p_new, m_new, v_new = _leaf_update(p, g, m, v, cfg, clip, bc1, bc2,
-                                           inplace=False)
-        return p_new.to(p.dtype), m_new, v_new
-
-    out = tree_map(upd, params, grads, state["m"], state["v"])
-    new_state = {"m": tree_map(lambda t: t[1], out),
-                 "v": tree_map(lambda t: t[2], out),
-                 "step": step}
-    if new_ef is not None:
-        new_state["ef"] = new_ef
-    return tree_map(lambda t: t[0], out), new_state
+    def fresh(t):
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+    new_params, m, v = (tree_map(fresh, t)
+                        for t in (params, state["m"], state["v"]))
+    new_state = {"m": m, "v": v}
+    new_state.update(_update(params, grads, state, cfg,
+                             (new_params, m, v)))
+    return new_params, new_state
 
 
 @torch.no_grad()
 def adamw_update_(params: Any, grads: Any, state: dict,
                   cfg: AdamWConfig) -> tuple[Any, dict]:
-    """`adamw_update` in place: the params' and m's and v's tensors take
-    the new values (the same bits), `state["step"]` and `state["ef"]`
-    are replaced; returns (params, state). Params, m and v must be
-    contiguous."""
-    grads, new_ef, clip, step, bc1, bc2 = _prepare(grads, state, cfg)
-    for p, g, m, v in zip(*(tree_leaves(t) for t in (
-            params, grads, state["m"], state["v"]))):
-        if not (p.is_contiguous() and m.is_contiguous()
-                and v.is_contiguous()):
-            raise ValueError("adamw_update_ updates contiguous params, m "
-                             "and v")
-        for ps, gs, ms, vs in zip(*(t.reshape(-1).split(INPLACE_SLICE)
-                                    for t in (p, g, m, v))):
-            p_new, _, _ = _leaf_update(ps, gs, ms, vs, cfg, clip, bc1, bc2,
-                                       inplace=True)
-            ps.copy_(p_new)
-    state["step"] = step
-    if new_ef is not None:
-        state["ef"] = new_ef
+    """One AdamW step in place: the params' and m's and v's tensors take
+    the new values, `state["step"]` and `state["ef"]` are replaced;
+    returns (params, state). Params, m and v must be contiguous."""
+    state.update(_update(params, grads, state, cfg,
+                         (params, state["m"], state["v"])))
     return params, state

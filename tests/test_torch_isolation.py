@@ -216,3 +216,18 @@ def test_replica_topology_start_raises_when_roles_die(tmp_path):
     assert time.monotonic() - t0 < 60.0
     assert all(p.poll() is not None
                for p in [topo.updater, topo.router, *topo.readers])
+
+
+def test_resolve_device_turns_off_bf16_reduced_precision_reduction():
+    """Every entry point's device goes through `resolve_device`, which
+    makes cuBLAS add the split-K partial sums of bfloat16 GEMMs in
+    float32 (the reference's `preferred_element_type=float32`)."""
+    from repro_torch.device import resolve_device
+    flags = torch.backends.cuda.matmul
+    was = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = True
+    try:
+        assert resolve_device("cpu") == torch.device("cpu")
+        assert flags.allow_bf16_reduced_precision_reduction is False
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = was

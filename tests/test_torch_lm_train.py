@@ -18,8 +18,8 @@ checkpoint manager (a nested train state), held to the uninterrupted
 run at rtol 1e-6 as the reference holds it (the port's equal bit for
 bit). `synth_lm_batch` and the LM layouts' `materialize` equal the
 reference's bit for bit; the driver resumes from its newest checkpoint,
-and `--full` refuses a config that does not fit. `adamw_update_` gives
-`adamw_update`'s bits in place. One
+and `--full` refuses a config that does not fit. `adamw_update` leaves
+its inputs as they were, and `adamw_update_` gives its bits in place. One
 case trains minitron's reduced config in bfloat16 on both sides for 3
 steps: losses at rtol 2^-7 (a few bfloat16 roundings of a loss near
 6.5; 1.6e-4 measured on the first).
@@ -243,8 +243,9 @@ def test_train_state_shapes_match_reference(compress):
 
 @pytest.mark.parametrize("compress", [None, "int8_ef"])
 def test_adamw_update_in_place_equals_functional(compress, monkeypatch):
-    """Same bits as `adamw_update`, written into the state's tensors, in
-    slices (`INPLACE_SLICE` cut to 7 elements here)."""
+    """`adamw_update` leaves its inputs as they were; `adamw_update_`
+    writes the same bits into the state's tensors, in slices
+    (`INPLACE_SLICE` cut to 7 elements here)."""
     monkeypatch.setattr(topt, "INPLACE_SLICE", 7)
     rng = np.random.default_rng(8)
     params = {"a": torch.from_numpy(rng.normal(size=(5, 6)).astype(
@@ -255,8 +256,11 @@ def test_adamw_update_in_place_equals_functional(compress, monkeypatch):
         size=tuple(p.shape)).astype(np.float32)).to(p.dtype), params)
     cfg = topt.AdamWConfig(lr=1e-2, compress=compress)
     state = topt.init_opt_state(params, cfg)
+    before = tree_map(torch.clone, [params, state])
     p1, s1 = topt.adamw_update(params, grads, state, cfg)
     p2, s2 = topt.adamw_update(p1, grads, s1, cfg)
+    for a, b in zip(tree_leaves([params, state]), tree_leaves(before)):
+        assert torch.equal(a, b)
     ip = tree_map(torch.clone, params)
     ist = tree_map(torch.clone, state)
     keep = tree_leaves(ip)
