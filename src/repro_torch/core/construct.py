@@ -18,12 +18,17 @@ from repro_torch.graphs.coo import INF_D, Graph
 
 def construct_key2_planes(g: Graph, own: torch.Tensor,
                           landmarks_full: torch.Tensor,
+                          max_iters: int | None = None,
                           plan: RelaxPlan | None = None) -> torch.Tensor:
     """Pruned-BFS fixpoints for a plane slice; returns key2 [P, V].
 
     `own` is the owning landmark of each plane [P]; `landmarks_full` the
     complete landmark set [R] (the hub flags see every landmark). Each
     plane's own landmark is seeded (d=0, l=False) and never hub-forced.
+    At most `max_iters` sweeps run (None: until the fixpoint, at most
+    V + 1); each plane of the reference's vmap stops at min(max_iters,
+    its own fixpoint), and a converged plane is unchanged by more sweeps,
+    so one loop over [P, V] capped at `max_iters` gives the same planes.
     """
     p_count = own.shape[0]
     dst_is_hub = per_plane_hub_mask(landmarks_full, own, g.n)
@@ -36,14 +41,17 @@ def construct_key2_planes(g: Graph, own: torch.Tensor,
                           clear_bit=1)
         return torch.minimum(k, ext)
 
-    return fixpoint("construct", sweep, key2_0, limit=g.n + 1)
+    return fixpoint("construct", sweep, key2_0,
+                    limit=max_iters if max_iters is not None else g.n + 1)
 
 
 def build_labelling(g: Graph, landmarks: torch.Tensor,
+                    max_iters: int | None = None,
                     plan: RelaxPlan | None = None) -> HighwayLabelling:
-    """Construct the minimal highway-cover labelling for G."""
+    """Construct the minimal highway-cover labelling for G (with
+    `max_iters`, the labelling after at most that many sweeps)."""
     landmarks = landmarks.to(torch.int32)
-    key2 = construct_key2_planes(g, landmarks, landmarks, plan)
+    key2 = construct_key2_planes(g, landmarks, landmarks, max_iters, plan)
     dist = key2_dist(key2).clamp_max(INF_D)
     hub = key2_hub(key2) & (dist < INF_D)
     highway = dist[:, landmarks.to(torch.int64)]  # [i, j] = dist[i, lm[j]]

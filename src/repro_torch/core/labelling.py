@@ -55,10 +55,10 @@ def key2_hub(key2: torch.Tensor) -> torch.Tensor:
 
 
 def key2_extend(key2: torch.Tensor, dst_is_hub: torch.Tensor,
-                w=1) -> torch.Tensor:
-    """(d,l) ⊕ edge: +w step, saturating at INF_KEY2; force l=True when
+                inf: int = INF_KEY2, w=1) -> torch.Tensor:
+    """(d,l) ⊕ edge: +w step, saturating at `inf`; force l=True when
     the head is a landmark (≠ r)."""
-    out = sat_add(key2, 2 * w, INF_KEY2)
+    out = sat_add(key2, 2 * w, inf)
     return torch.where(dst_is_hub, out & ~1, out)
 
 
@@ -75,10 +75,10 @@ def key4_from_key2(key2: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 
 def key4_extend(key4: torch.Tensor, dst_is_hub: torch.Tensor,
-                w=1) -> torch.Tensor:
+                inf: int = INF_KEY4, w=1) -> torch.Tensor:
     """((d,l) ⊕ edge, e): +w step keeps the deletion flag; saturating at
-    INF_KEY4."""
-    out = sat_add(key4, 4 * w, INF_KEY4)
+    `inf`."""
+    out = sat_add(key4, 4 * w, inf)
     return torch.where(dst_is_hub, out & ~2, out)
 
 

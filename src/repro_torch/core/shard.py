@@ -202,6 +202,7 @@ def _chunk_shards(mesh, state: list) -> list[tuple[torch.device, None]]:
 # ---------------------------------------------------------------------------
 
 def shard_build_labelling(mesh, g: Graph, landmarks: torch.Tensor,
+                          max_iters: int | None = None,
                           plan: RelaxPlan | None = None) -> HighwayLabelling:
     """`build_labelling` on the mesh; bit-identical outputs, gathered on
     the mesh's first device. `plan` (replicated into every shard) runs
@@ -211,8 +212,8 @@ def shard_build_labelling(mesh, g: Graph, landmarks: torch.Tensor,
 
     def body(k, dev, blk):
         lm = landmarks.to(dev)
-        key2 = construct_key2_planes(_to(g, dev), lm[blk], lm,
-                                     _to(plan, dev))
+        key2 = construct_key2_planes(_to(g, dev), lm[blk], lm, max_iters,
+                                     plan=_to(plan, dev))
         dist = key2_dist(key2).clamp_max(INF_D)
         hub = key2_hub(key2) & (dist < INF_D)
         return dist, hub, dist[:, lm.to(torch.int64)]   # local rows [P, R]

@@ -25,6 +25,9 @@ from repro_torch.core.engine import RelaxEngine
 from repro_torch.graphs.coo import INF_D
 
 TWO_COMPONENTS = np.array([[0, 1], [1, 2], [3, 4], [4, 5]], np.int32)
+#: A 64-vertex path with landmarks at both ends: 63 sweeps to the fixpoint.
+PATH64 = np.array([[i, i + 1] for i in range(63)], np.int32)
+PATH64_LANDMARKS = np.array([0, 63], np.int32)
 
 
 def _port_graph(gj):
@@ -66,6 +69,24 @@ def test_key_arithmetic_near_inf():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (tlab.INF_KEY2, tlab.INF_KEY4) == (int(jlab.INF_KEY2),
                                               int(jlab.INF_KEY4))
+
+
+@pytest.mark.parametrize("fn,inf", [
+    ("key2_extend", 2 * 1000 + 1), ("key2_extend", (1 << 20) + 1),
+    ("key4_extend", 4 * 1000 + 3), ("key4_extend", (1 << 22) + 3)])
+def test_key_extend_with_other_inf(fn, inf):
+    """`inf=` saturates at the given key, as the reference's does."""
+    rng = np.random.default_rng(1)
+    k = np.concatenate([np.arange(inf - 12, inf + 3),
+                        rng.integers(0, inf, 25)]).astype(np.int32)
+    w = rng.integers(1, 9, k.shape[0]).astype(np.int32)
+    hub = rng.random(k.shape[0]) < 0.5
+    got = getattr(tlab, fn)(torch.from_numpy(k), torch.from_numpy(hub),
+                            inf, w=torch.from_numpy(w)).numpy()
+    want = getattr(jlab, fn)(jnp.asarray(k), jnp.asarray(hub), inf,
+                             w=jnp.asarray(w))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert got.max() <= inf
 
 
 def test_landmark_selection_breaks_ties_by_lower_id():
@@ -124,3 +145,29 @@ def test_construction_matches_reference(name, tiled):
     if name == "two_components":
         # Saturated, then hub-cleared: below INF_KEY2, as the reference.
         assert k_t[0, 3] == 536870912 and k_t[1, 0] == 536870912
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 8, None])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_build_labelling_max_iters_matches_reference(max_iters, tiled):
+    """`build_labelling(g, lm, max_iters)` on the 64-vertex path with
+    landmarks [0, 63]: each plane stops after `max_iters` sweeps, so
+    entries further out stay at INF_D (110 of 128 at 8 sweeps)."""
+    gj = jcoo.from_edges(64, PATH64, len(PATH64))
+    gt = _port_graph(gj)
+    lm_j = jnp.asarray(PATH64_LANDMARKS)
+    lm_t = torch.from_numpy(PATH64_LANDMARKS)
+    plan = (RelaxEngine(block_v=16, block_e=8, device="cpu").prepare(gt)
+            if tiled else None)
+    lab_t = tcon.build_labelling(gt, lm_t, max_iters, plan)
+    lab_j = jcon.build_labelling(gj, lm_j, max_iters)
+    for got, want in zip(cv.labelling_to_numpy(lab_t),
+                         (lab_j.landmarks, lab_j.dist, lab_j.hub,
+                          lab_j.highway)):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    k_t = tcon.construct_key2_planes(gt, lm_t, lm_t, max_iters, plan=plan)
+    np.testing.assert_array_equal(
+        k_t.numpy(), np.asarray(jcon.construct_key2_planes(gj, lm_j, lm_j,
+                                                           max_iters)))
+    unreached = int((lab_t.dist == INF_D).sum())
+    assert unreached == {0: 126, 1: 124, 8: 110, None: 0}[max_iters]

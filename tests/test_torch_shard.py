@@ -131,6 +131,24 @@ def test_build_update_query_parity(inst, mesh, plan):
     _eq(tq.batched_query(g1, lab1, qs, qt, plan=p1), inst.d1)
 
 
+@pytest.mark.parametrize("max_iters", [0, 1, 8, None])
+def test_shard_build_labelling_max_iters(max_iters):
+    """`shard_build_labelling(mesh, g, lm, max_iters)` on a (2, 2) CPU
+    mesh equals the reference's `build_labelling` and its
+    `shard_build_labelling` on its host mesh, on the 64-vertex path with
+    landmarks [0, 63], where 8 sweeps leave 110 of 128 entries at INF_D."""
+    path = np.array([[i, i + 1] for i in range(63)], np.int32)
+    gt, _, gj, _ = _both(64, path, len(path), [], 1)
+    lm = np.array([0, 63, 31, 32], np.int32)
+    mesh = make_host_mesh(model=2, devices=["cpu"] * 4)
+    got = shard.shard_build_labelling(mesh, gt, torch.from_numpy(lm),
+                                      max_iters)
+    _assert_lab(got, jcon.build_labelling(gj, jnp.asarray(lm), max_iters))
+    _assert_lab(got, jshard.shard_build_labelling(
+        jmake_host_mesh(), gj, jnp.asarray(lm), max_iters))
+    assert got.dist.shape == (4, 64)
+
+
 @pytest.mark.parametrize("plan", ["coo", "engine"])
 def test_reference_shard_functions_on_its_host_mesh(inst, plan):
     """`repro`'s own `shard_*` on its one-device host mesh (the pallas
