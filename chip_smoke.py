@@ -212,7 +212,23 @@
    of step 6 (must be 0), peak memory.
    The kernels' launch counts are set to 0 before the phase and must
    read 0 after it: the reference's LMs reach no Pallas kernel.
-14. Prints a `summary:` line with every number above as JSON, the
+14. The BatchHL cells (`configs/batchhl.py`), right after phase 4, on
+   phase 3's graph (their `model_config` is phase 3's width): each built
+   by `configs.common.build_cell("batchhl", shape, pod=False)` and its
+   `step_fn` called on phase 3's tensors. `construct` equals phase 3's
+   labelling bit for bit (max_iters 64 must not bind); `update_1k` (phase
+   3's batch) equals phase 3's update and its `aff.sum()`; `update_10k`
+   (5,120 + 5,120 rows by seed) equals the COO path (plan=None) on the
+   card and scipy BFS from every landmark; `query_1k` and `query_1k_repl`
+   answer phase 3's 1024 queries in one call at max_steps 16 (kernel A
+   on [1024, 2^20] keys): equal to each other, never below phase 3's
+   answers, and equal to them unless all 16 waves ran. Launch counts are
+   set to 0 before each cell and read after it: A in all five, B in both
+   queries. Seconds and peak memory per cell. Then the dry run
+   (`launch/dryrun.py`): its bytes pass over every cell of the 10 archs
+   and batchhl on both production meshes (90 records, 0 failures), and
+   its FLOPs pass on meta tensors for one cell per family.
+15. Prints a `summary:` line with every number above as JSON, the
    `{"kernels": [...]}` line (kernel A's and B's launches are run A's),
    the card line, and last `{"ok": true, "device": {...}}`.
 
@@ -3189,6 +3205,196 @@ def run_lm(torch, np, dev, card) -> dict:
     return out
 
 
+# --- phase 14: the BatchHL cells and the dry run -----------------------------
+
+BHL_10K = 5120          # inserts and deletions of update_10k
+BHL_QUERY_STEPS = 16    # the query cells' max_steps (configs/batchhl.py)
+#: One cell per family for the dry run's FLOPs pass on meta tensors.
+DRYRUN_FLOPS_CELLS = (("minitron-4b", "decode_32k"), ("schnet", "molecule"),
+                      ("mind", "serve_p99"))
+
+
+def bhl_cell_run(torch, cell, args) -> tuple:
+    """One call of a BatchHL cell's step with the launch and wave counts
+    set to 0 just before: (outputs, row of seconds, peak, launches)."""
+    from repro_torch.core import engine as teng
+    reset_launches()
+    teng.WAVES.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = cell.step_fn(*args)
+    torch.cuda.synchronize()
+    row = dict(step_s=time.perf_counter() - t0,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               waves=dict(teng.WAVES), launches=read_launches())
+    return out, row
+
+
+def run_batchhl_cells(torch, np, dev, card, edges, g0, lab0, batch, full,
+                      answers, qs, qt) -> dict:
+    """Phase 14: the five cells of `configs/batchhl.py` built by
+    `configs.common.build_cell("batchhl", shape, pod=False)` and their
+    `step_fn`s called on phase 3's graph (BA(2^20, 4), capacity 2^23, 32
+    landmarks: the cells' `model_config`), each held to phase 3, the COO
+    path or scipy BFS; then the dry run's bytes pass over every cell and
+    its FLOPs pass on one cell per family."""
+    from repro_torch.configs import batchhl as bhl
+    from repro_torch.configs import common as cc
+    from repro_torch.core import batch as tbat
+    from repro_torch.graphs import coo
+    from repro_torch.graphs import generators as gen
+    from repro_torch.graphs.coo import INF_D
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    c = bhl.model_config()
+    if (c.n_vertices, 2 * c.edge_cap, c.n_landmarks) != (
+            g0.n, g0.src.shape[0], lab0.dist.shape[0]):
+        raise AssertionError(f"phase 14: {c} is not phase 3's width")
+    g1, lab1, aff1 = full
+    cells = {name: cc.build_cell("batchhl", name, pod=False)
+             for name in bhl.SHAPES}
+
+    def fields(x, names):
+        return {f: getattr(x, f) for f in names}
+    gf = ("src", "dst", "valid", "w")
+    lf = ("landmarks", "dist", "hub", "highway")
+    bf = ("src", "dst", "is_del", "valid", "w", "is_rew")
+    rows = {}
+
+    def check(name, a, b, what):
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 14 {name}: {what} differs")
+
+    # construct: max_iters = 64 must not bind (6 waves on BA(2^20, 4)).
+    out, rows["construct"] = bhl_cell_run(
+        torch, cells["construct"], (fields(g0, gf), lab0.landmarks))
+    for f in lf:
+        check("construct", out[f], getattr(lab0, f), f"{f} against phase 3")
+    waves = rows["construct"]["waves"].get("construct", 0)
+    if waves >= 64:
+        raise AssertionError(f"phase 14 construct: max_iters bound ({waves})")
+    del out
+
+    # update_1k: phase 3's 512 + 512 rows.
+    out, rows["update_1k"] = bhl_cell_run(
+        torch, cells["update_1k"],
+        (fields(g0, gf), fields(batch, bf), fields(lab0, lf)))
+    for f in gf:
+        check("update_1k", out[0][f], getattr(g1, f), f"{f} against phase 3")
+    for f in lf:
+        check("update_1k", out[1][f], getattr(lab1, f), f"{f} against phase 3")
+    if int(out[2]) != int(aff1.sum()):
+        raise AssertionError("phase 14 update_1k: aff.sum() != phase 3's")
+    rows["update_1k"]["affected"] = int(out[2])
+    del out
+
+    # update_10k: 5120 + 5120 rows by seed, against the COO path and BFS.
+    ups = gen.random_batch_updates(edges, g0.n, n_ins=BHL_10K, n_del=BHL_10K,
+                                   seed=4)
+    b10 = coo.make_batch(ups, pad_to=2 * BHL_10K, device=dev)
+    free = int((~g0.valid).sum()) // 2
+    out, rows["update_10k"] = bhl_cell_run(
+        torch, cells["update_10k"],
+        (fields(g0, gf), fields(b10, bf), fields(lab0, lf)))
+    t0 = time.perf_counter()
+    g_ref, lab_ref, aff_ref = tbat.batchhl_update(g0, b10, lab0,
+                                                  improved=c.improved,
+                                                  plan=None)
+    torch.cuda.synchronize()
+    coo_s = time.perf_counter() - t0
+    for f in gf:
+        check("update_10k", out[0][f], getattr(g_ref, f), f"{f} against COO")
+    for f in lf:
+        check("update_10k", out[1][f], getattr(lab_ref, f),
+              f"{f} against COO")
+    if int(out[2]) != int(aff_ref.sum()):
+        raise AssertionError("phase 14 update_10k: aff.sum() != COO path's")
+    g10 = coo.Graph(n=g0.n, **out[0])
+    t0 = time.perf_counter()
+    lm = lab0.landmarks.cpu().numpy()
+    want = bfs_dist(csr_of(g10, np), lm, np, INF_D)
+    if not np.array_equal(out[1]["dist"].cpu().numpy(), want):
+        raise AssertionError("phase 14 update_10k: dist != scipy BFS")
+    rows["update_10k"].update(affected=int(out[2]), free_slots=free,
+                              coo_s=coo_s,
+                              bfs_s=time.perf_counter() - t0)
+    del out, g_ref, lab_ref, aff_ref, g10, want
+
+    # query_1k and query_1k_repl: phase 3's 1024 queries in one call.
+    q = {"s": torch.from_numpy(qs).to(dev), "t": torch.from_numpy(qt).to(dev)}
+    got = {}
+    for name in ("query_1k", "query_1k_repl"):
+        got[name], rows[name] = bhl_cell_run(
+            torch, cells[name], (fields(g1, gf), fields(lab1, lf), q))
+    check("query_1k_repl", got["query_1k_repl"], got["query_1k"],
+          "answers against query_1k")
+    exact = answers[:len(qs)]
+    if exact.shape[0] != got["query_1k"].shape[0]:
+        raise AssertionError("phase 14: phase 3 answered fewer queries "
+                             f"({exact.shape[0]}) than the cell's 1024")
+    if bool((got["query_1k"] < exact).any()):
+        raise AssertionError("phase 14 query_1k: an answer below phase 3's")
+    differ = int((got["query_1k"] != exact).sum())
+    q_waves = rows["query_1k"]["waves"].get("bibfs", 0)
+    if differ and q_waves < BHL_QUERY_STEPS:
+        raise AssertionError(f"phase 14 query_1k: {differ} answers differ "
+                             f"from phase 3's after {q_waves} waves")
+    rows["query_1k"].update(differ=differ, bibfs_waves=q_waves)
+    del got
+
+    for name, row in rows.items():
+        la = row["launches"]
+        if la["relax_sweep"] <= 0 or (name.startswith("query")
+                                      and la["minplus"] <= 0):
+            raise AssertionError(f"phase 14 {name}: launches {la}")
+        log(f"phase 14 {name} ({card}): step {row['step_s']:.3f} s, peak "
+            f"{row['peak_gb']:.2f} GB, waves {row['waves']}, launches A "
+            f"{la['relax_sweep']} B {la['minplus']}")
+    log(f"phase 14: construct == phase 3's labelling in "
+        f"{rows['construct']['waves'].get('construct')} waves (max_iters 64);"
+        f" update_1k == phase 3's update (aff {rows['update_1k']['affected']})"
+        f"; update_10k ({BHL_10K} + {BHL_10K} rows, {free} free slots) == "
+        f"the COO path ({coo_s:.3f} s) and scipy BFS; query_1k == "
+        f"query_1k_repl, {differ} of 1024 differ from phase 3's exact "
+        f"answers after {q_waves} waves")
+
+    # The dry run: bytes over every cell and mesh, FLOPs on one per family.
+    t0 = time.perf_counter()
+    dry, fails = [], []
+    for arch in cc.ALL_ARCHS + ("batchhl",):
+        for shape in cc.arch_shapes(arch):
+            for multi in (False, True):
+                try:
+                    dry.append(dryrun.run_cell(arch, shape, multi,
+                                               flops=False))
+                except Exception as e:  # noqa: BLE001 — counted, then fatal
+                    fails.append(f"{arch}/{shape}/{multi}: {e!r}")
+    bytes_s = time.perf_counter() - t0
+    if fails or len(dry) != 90:
+        raise AssertionError(f"phase 14 dry run: {len(dry)} records, "
+                             f"failures {fails}")
+    flops = {}
+    for arch, shape in DRYRUN_FLOPS_CELLS:
+        rec = dryrun.run_cell(arch, shape, False)
+        if not rec["cost"]["flops"]:
+            raise AssertionError(f"phase 14 dry run: no FLOPs for {arch}/"
+                                 f"{shape}")
+        flops[f"{arch}/{shape}"] = dict(flops=rec["cost"]["flops"],
+                                        seconds=rec["flops_pass_s"])
+    upd = next(r for r in dry if (r["arch"], r["shape"], r["mesh"]) == (
+        "batchhl", "update_1k", "16x16"))
+    if upd["memory"]["argument_bytes"] != 14_306_432:
+        raise AssertionError(f"phase 14 dry run: update_1k argument bytes "
+                             f"{upd['memory']['argument_bytes']}")
+    log(f"phase 14 dry run: {len(dry)} records (45 cells x 2 meshes), 0 "
+        f"failures, bytes pass {bytes_s:.2f} s; FLOPs on meta {flops}")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 14: {wall:.1f} s ({card})")
+    return dict(cells=rows, dryrun_records=len(dry), dryrun_bytes_s=bytes_s,
+                dryrun_flops=flops, wall_s=wall)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3356,6 +3562,10 @@ def main() -> int:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     log(f"phase 4d: launches on the main path {launches}")
+
+    # --- 14. the BatchHL cells on phase 3's graph, and the dry run ----------
+    bhl_row = run_batchhl_cells(torch, np, dev, card, edges, g0, lab0, batch,
+                                (g1, lab1, aff1), answers, qs, qt)
 
     # --- 12c. the neighbour sampler on phase 3's graph -----------------------
     reset_launches()
@@ -3537,7 +3747,7 @@ def main() -> int:
         dump_role_logs(REPLICA_DIR / "logs")
         raise
 
-    # --- 14. the kernels line and the summary --------------------------------
+    # --- 15. the kernels line and the summary --------------------------------
     key2_row = sweep_rows[2]
     kernels = [
         dict(name="relax_sweep", route="cuda",
@@ -3588,6 +3798,7 @@ def main() -> int:
                    serve=serve, directed=directed, autotune=autotune,
                    replica=replica_tier, sharded=sharded, mind=mind_row,
                    gnn=gnn_row, sampler=sampler_row, lm=lm_row,
+                   batchhl_cells=bhl_row,
                    profiler_short_passes=short_passes,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")

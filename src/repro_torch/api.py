@@ -59,7 +59,11 @@ def default_engine(device: torch.device) -> RelaxEngine | None:
     return _engines[device]
 
 
-def _plan(g: Graph, engine: RelaxEngine | None) -> RelaxPlan | None:
+def default_plan(g: Graph, engine: RelaxEngine | None = None
+                 ) -> RelaxPlan | None:
+    """The plan the verbs sweep `g` with: `engine`'s (default: the card's
+    default engine) prepared from `g`, or None (the COO path) on the
+    CPU."""
     engine = engine if engine is not None else default_engine(g.device)
     return engine.prepare(g) if engine is not None else None
 
@@ -85,7 +89,7 @@ def build(n: int, edges: np.ndarray, *, num_landmarks: int = 16,
     else:
         landmarks = torch.as_tensor(np.asarray(landmarks, np.int32),
                                     device=device)
-    return g, build_labelling(g, landmarks, plan=_plan(g, engine))
+    return g, build_labelling(g, landmarks, plan=default_plan(g, engine))
 
 
 def update(g: Graph, lab: HighwayLabelling, updates, *,
@@ -104,7 +108,7 @@ def update(g: Graph, lab: HighwayLabelling, updates, *,
         else make_batch(updates, pad_to=pad_to, device=g.device)
     g_new = apply_batch(g, batch)
     return batchhl_update(g, batch, lab, improved=improved,
-                          plan=_plan(g_new, engine), g_new=g_new)
+                          plan=default_plan(g_new, engine), g_new=g_new)
 
 
 def query(g: Graph, lab: HighwayLabelling, s, t, *, max_steps: int = 64,
@@ -118,7 +122,7 @@ def query(g: Graph, lab: HighwayLabelling, s, t, *, max_steps: int = 64,
     t = torch.as_tensor(np.asarray(t, np.int32) if not torch.is_tensor(t)
                         else t, device=g.device)
     return batched_query(g, lab, s, t, max_steps=max_steps,
-                         plan=_plan(g, engine))
+                         plan=default_plan(g, engine))
 
 
 def serve(spec: ServeSpec | None = None, *, publish_dir: str | None = None,

@@ -182,31 +182,39 @@ def load_leaves(ckpt_dir: str, step: int, names: tuple[str, ...] | None = None,
     return out
 
 
-def restore(ckpt_dir: str, tree_like, step: int | None = None, *,
+def restore(ckpt_dir: str, tree_like, shardings=None,
+            step: int | None = None, *,
             device: str | torch.device | None = None) -> tuple[object, int]:
-    """Restore a tree of `tree_like`'s structure (nested dicts and lists)
-    onto `device` (None: the GPU, raising without one), each leaf read
-    from the file its path names and cast to its template's dtype;
-    returns (tree, step).
+    """Restore a tree of `tree_like`'s structure (nested dicts and lists),
+    each leaf read from the file its path names and cast to its
+    template's dtype; returns (tree, step).
 
-    Every leaf lands on the one `device`. The reference places leaves on
-    a mesh (`shardings`); the port's mesh runs keep their labelling
-    gathered on the mesh's first device (`core/shard.py`), so a resume
-    with a mesh restores onto that device.
+    `shardings`, the reference's elastic re-placement, is a tree of
+    `tree_like`'s structure whose leaves are devices: each leaf is
+    restored onto the device at its place, or at the nearest node above
+    it that is a device. Leaves it leaves out (a missing key, a shorter
+    list, a None) land on `device` (None: the GPU, raising without one).
+    The port's mesh runs keep their labelling gathered on the mesh's
+    first device (`core/shard.py`), so a resume with a mesh restores
+    onto that device.
     """
-    device = resolve_device(device)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     d = step_dir(ckpt_dir, step)
 
-    def build(like, name: str):
+    def build(like, where, name: str):
         if isinstance(like, dict):
-            return {k: build(v, _join(name, k)) for k, v in like.items()}
+            return {k: build(v, where.get(k) if isinstance(where, dict)
+                             else where, _join(name, k))
+                    for k, v in like.items()}
         if isinstance(like, list):
-            return [build(v, _join(name, i)) for i, v in enumerate(like)]
-        return _load_leaf(os.path.join(d, name + ".npy"), like, device)
-    return build(tree_like, ""), step
+            return [build(v, (where[i] if i < len(where) else None)
+                          if isinstance(where, list) else where,
+                          _join(name, i)) for i, v in enumerate(like)]
+        return _load_leaf(os.path.join(d, name + ".npy"), like,
+                          resolve_device(device if where is None else where))
+    return build(tree_like, shardings, ""), step
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Stateless-seeded synthetic data: batch = f(layout, seed).
 
-The port of `repro.data.synthetic`'s `materialize`, the LM, GNN and
-MIND layouts and `coherent_gnn_batch`. A layout is a dict name -> (shape
-tuple, torch dtype, kind), kind in {"tokens:<vocab>", "ids:<max>",
-"float", "bool", "pos", "angle", "zeros"}. `materialize` and
+The port of `repro.data.synthetic`: `as_specs`, `materialize`, the
+LM, GNN and MIND layouts and `coherent_gnn_batch`. A layout is a dict
+name -> (shape tuple, torch dtype, kind), kind in {"tokens:<vocab>",
+"ids:<max>", "float", "bool", "pos", "angle", "zeros"}. `materialize` and
 `coherent_gnn_batch` draw with the reference's
 `numpy.random.default_rng(seed)` calls in the reference's order, so
 their arrays equal the reference's bit for bit.
@@ -14,6 +14,14 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+
+def as_specs(layout: dict) -> dict:
+    """The layout as meta tensors (shapes and dtypes, no storage): the
+    reference's ShapeDtypeStructs, one source of truth with `materialize`.
+    """
+    return {k: torch.empty(shape, dtype=dtype, device="meta")
+            for k, (shape, dtype, _) in layout.items()}
 
 
 def materialize(layout: dict, seed: int = 0, *,

@@ -10,8 +10,15 @@ one stream) or, for the tests, on the CPU.
 
 Axis roles as in the reference: `data` takes query-batch shards (and
 landmark planes during maintenance), `model` landmark planes.
+
+The production geometry (`make_production_mesh`) and the placement spec
+`P` describe the reference's TPU pods for the dry run
+(`launch/dryrun.py`): axis names and sizes, no device.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 
@@ -79,3 +86,64 @@ def make_host_mesh(model: int = 1, *, device=None, devices=None) -> Mesh:
             f"model-axis size {model} must divide the {n} local devices")
     return Mesh([devices[d * model:(d + 1) * model]
                  for d in range(n // model)])
+
+
+class P(tuple):
+    """A placement spec, the reference's `PartitionSpec`: one entry per
+    leading dim of a tensor, each None (replicated), an axis name, or a
+    tuple of axis names (the dim split over the product of their sizes);
+    dims past the entries are replicated. A one-name tuple reads as the
+    name, as JAX's spec does, so `P(("data",), None) == P("data", None)`.
+    """
+    __slots__ = ()
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, (_spec_entry(x) for x in parts))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+    def axes(self, dim: int) -> tuple[str, ...]:
+        """The axis names that split `dim` (none past the entries)."""
+        if dim >= len(self) or self[dim] is None:
+            return ()
+        return (self[dim],) if isinstance(self[dim], str) else self[dim]
+
+
+def _spec_entry(x):
+    if x is None or isinstance(x, str):
+        return x
+    x = tuple(x)
+    if not x or not all(isinstance(a, str) for a in x):
+        raise ValueError(f"a spec entry is None, an axis name or a tuple "
+                         f"of axis names, not {x!r}")
+    return x[0] if len(x) == 1 else x
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """Axis names and sizes of a mesh that names no device."""
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """{axis: size}, as the reference's `mesh.shape`."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The reference's production geometry (TPU v5e pods): one pod of 256
+    chips as (data=16, model=16), or two pods as (pod=2, data=16,
+    model=16). Axis roles: `data` batch/FSDP/vertex shards, `model`
+    tensor/expert/landmark parallel, `pod` more data parallelism."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.gather import take_rows
+from repro_torch.launch.mesh import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +43,15 @@ def param_shapes(c: MindConfig) -> dict:
     return {"item_embed": ((c.n_items, d), c.dtype),
             "bilinear": ((d, d), c.dtype),
             "out_proj": ((d, d), c.dtype)}
+
+
+def param_specs(c: MindConfig, pod: bool = False) -> dict:
+    """Placement specs on the production mesh: the item table row-sharded
+    over every axis, the square matrices replicated."""
+    rows = ("model", "pod", "data") if pod else ("model", "data")
+    return {"item_embed": P(rows, None),
+            "bilinear": P(None, None),
+            "out_proj": P(None, None)}
 
 
 def init_params(c: MindConfig, *, generator: torch.Generator | None = None,

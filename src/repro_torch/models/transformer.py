@@ -62,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.gather import take_rows
+from repro_torch.launch.mesh import P
 from repro_torch.models import moe as moe_lib
 from repro_torch.tree import tree_map
 
@@ -239,6 +240,69 @@ def param_shapes(c: TransformerConfig) -> dict:
         out["dense_layers"] = stack(layer_param_shapes(c, False), n_dense)
     if n_moe:
         out["moe_layers"] = stack(layer_param_shapes(c, True), n_moe)
+    return out
+
+
+def param_specs(c: TransformerConfig, pod: bool = False,
+                scheme: str = "v2") -> dict:
+    """The params tree's placement specs on the production mesh
+    (`launch/mesh.py:P`), rule for rule as the reference's.
+
+    scheme="v1": every projection output-sharded over 'model'.
+    scheme="v2" (default), Megatron-style: attention weights FSDP on the
+    d_model dim only (heads whole); the FFN tensor-parallel on d_ff over
+    'model'; embedding and lm_head vocab-parallel over 'model'. MoE
+    experts are expert-parallel when their count divides the 16-way model
+    axis, else tensor-parallel on the ffn dim.
+    """
+    fsdp = ("pod", "data") if pod else ("data",)
+    tp = "model"
+    v2 = scheme == "v2"
+
+    def dense_specs(moe_layer: bool) -> dict:
+        s: dict[str, Any] = {"ln_attn": P(None, None),
+                             "ln_ffn": P(None, None)}
+        if c.use_mla:
+            s.update({
+                "wq": P(None, fsdp, None) if v2 else P(None, fsdp, tp),
+                "wkv_a": P(None, fsdp, None),
+                "kv_ln": P(None, None),
+                "wkv_b": P(None, None, None) if v2 else P(None, fsdp, tp),
+                "wo": P(None, None, fsdp) if v2 else P(None, tp, fsdp),
+            })
+        else:
+            qkv = P(None, fsdp, None) if v2 else P(None, fsdp, tp)
+            s.update({"wq": qkv, "wk": qkv, "wv": qkv,
+                      "wo": P(None, None, fsdp) if v2 else P(None, tp, fsdp)})
+        if moe_layer:
+            s["router"] = P(None, fsdp, None)
+            if c.n_experts % 16 == 0:
+                s["w_gate"] = P(None, tp, fsdp, None)
+                s["w_up"] = P(None, tp, fsdp, None)
+                s["w_down"] = P(None, tp, None, fsdp)
+            else:
+                s["w_gate"] = P(None, None, fsdp, tp)
+                s["w_up"] = P(None, None, fsdp, tp)
+                s["w_down"] = P(None, None, tp, fsdp)
+            if c.n_shared_experts:
+                s["ws_gate"] = P(None, fsdp, tp)
+                s["ws_up"] = P(None, fsdp, tp)
+                s["ws_down"] = P(None, tp, fsdp)
+        else:
+            s["w_gate"] = P(None, fsdp, tp)
+            if c.gated:
+                s["w_up"] = P(None, fsdp, tp)
+            s["w_down"] = P(None, tp, fsdp)
+        return s
+
+    n_moe = _n_moe(c)
+    out = {"embed": P(tp, None) if v2 else P(tp, fsdp),
+           "final_ln": P(None),
+           "lm_head": P(None, tp) if v2 else P(fsdp, tp)}
+    if c.n_layers - n_moe:
+        out["dense_layers"] = dense_specs(False)
+    if n_moe:
+        out["moe_layers"] = dense_specs(True)
     return out
 
 
@@ -644,6 +708,27 @@ def cache_shapes(c: TransformerConfig, batch: int, max_len: int) -> dict:
         out["dense"] = one(n_dense, max_len)
     if n_moe:
         out["moe"] = one(n_moe, max_len)
+    return out
+
+
+def cache_specs(c: TransformerConfig, pod: bool = False) -> dict:
+    """The KV cache's placement specs, as the reference's: the sequence
+    over the data axes (flash-decoding), kv heads (MLA: the latent dim)
+    over 'model'."""
+    seq_ax = ("pod", "data") if pod else ("data",)
+    n_moe = _n_moe(c)
+
+    def one():
+        if c.use_mla:
+            return {"c_kv": P(None, None, seq_ax, "model"),
+                    "k_rope": P(None, None, seq_ax, None, None)}
+        return {"k": P(None, None, seq_ax, "model", None),
+                "v": P(None, None, seq_ax, "model", None)}
+    out = {}
+    if c.n_layers - n_moe:
+        out["dense"] = one()
+    if n_moe:
+        out["moe"] = one()
     return out
 
 

@@ -167,6 +167,36 @@ def test_manager_save_restore_and_nested_names(tmp_path):
         tckpt.restore(str(tmp_path / "empty"), like, device="cpu")
 
 
+def test_elastic_restore_with_sharding(tmp_path):
+    """Restore places each leaf on the device `shardings` names at its
+    place or above it (the mirror of `tests/test_train_infra.py`'s test
+    of that name); leaves it does not name land on `device=`. The
+    reference restores the port's step with its own shardings to the
+    same values."""
+    tree = {"w": torch.arange(16, dtype=torch.float32).reshape(4, 4),
+            "opt": {"m": torch.ones(3), "step": torch.tensor(5)}}
+    d = str(tmp_path / "ck")
+    tckpt.save(d, 2, tree)
+    back, step = tckpt.restore(d, {"w": tree["w"]},
+                               shardings={"w": torch.device("cpu")})
+    assert step == 2 and back["w"].device == torch.device("cpu")
+    assert torch.equal(back["w"], tree["w"])
+    sub, _ = tckpt.restore(d, {"opt": tree["opt"]}, {"opt": "cpu"})
+    assert torch.equal(sub["opt"]["m"], tree["opt"]["m"])  # a subtree's device
+    back, _ = tckpt.restore(d, tree, {"opt": {"m": "cpu"}}, device="cpu")
+    assert all(torch.equal(a, b) for a, b in ((back["w"], tree["w"]), (
+        back["opt"]["m"], tree["opt"]["m"]), (back["opt"]["step"],
+                                              tree["opt"]["step"])))
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec
+    mesh = jax.make_mesh((1, 1), ("data", "model"))
+    sh = {"w": NamedSharding(mesh, PartitionSpec("data", None))}
+    jback, _ = jckpt.restore(d, {"w": np.zeros((4, 4), np.float32)},
+                             shardings=sh)
+    assert jback["w"].sharding == sh["w"]
+    np.testing.assert_array_equal(np.asarray(jback["w"]), tree["w"].numpy())
+
+
 def test_publish_and_prune_protect_the_published_range(tmp_path):
     d = str(tmp_path)
     assert tckpt.latest_step(d) is None and tckpt.read_current(d) is None

@@ -382,3 +382,17 @@ def test_sharded_update_and_query_on_card_equal_cpu(dev, model):
                                       lab1.highway, aff, d)])
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_restore_places_a_leaf_on_the_card(dev, tmp_path):
+    """`restore(..., shardings=)` puts the leaf it names on the card and
+    the others on `device=`."""
+    from repro_torch.checkpoint import manager as ckpt
+    tree = {"w": torch.arange(16, dtype=torch.float32).reshape(4, 4),
+            "b": torch.arange(3)}
+    ckpt.save(str(tmp_path), 1, tree)
+    back, _ = ckpt.restore(str(tmp_path), tree, {"w": dev}, device="cpu")
+    assert back["w"].device == dev and back["b"].device.type == "cpu"
+    assert torch.equal(back["w"].cpu(), tree["w"])
+    assert torch.equal(back["b"], tree["b"])

@@ -35,7 +35,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.launch.train, repro_torch.configs.gemma2_9b, "
             "repro_torch.configs.minitron_4b, repro_torch.configs.granite_8b, "
             "repro_torch.configs.deepseek_v2_lite_16b, "
-            "repro_torch.configs.mixtral_8x22b; "
+            "repro_torch.configs.mixtral_8x22b, repro_torch.configs.batchhl, "
+            "repro_torch.launch.dryrun; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.') or m == 'ml_dtypes']; print(bad)")
