@@ -16,9 +16,11 @@ import filecmp
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from repro.checkpoint import manager as jckpt
 from repro.core import batch as jbat
@@ -187,8 +189,6 @@ def test_elastic_restore_with_sharding(tmp_path):
     assert all(torch.equal(a, b) for a, b in ((back["w"], tree["w"]), (
         back["opt"]["m"], tree["opt"]["m"]), (back["opt"]["step"],
                                               tree["opt"]["step"])))
-    import jax
-    from jax.sharding import NamedSharding, PartitionSpec
     mesh = jax.make_mesh((1, 1), ("data", "model"))
     sh = {"w": NamedSharding(mesh, PartitionSpec("data", None))}
     jback, _ = jckpt.restore(d, {"w": np.zeros((4, 4), np.float32)},

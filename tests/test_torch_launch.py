@@ -26,9 +26,11 @@ name), and the port held to the reference:
 """
 from __future__ import annotations
 
+import copy
 import importlib
 import json
 import os
+import pickle
 import subprocess
 import sys
 from pathlib import Path
@@ -203,8 +205,6 @@ def test_spec_reads_as_partition_spec():
     assert P(("pod", "data")).axes(0) == ("pod", "data")
     assert P("model").axes(0) == ("model",) and P("model").axes(1) == ()
     assert P() == () and P(None).axes(0) == ()
-    import copy
-    import pickle
     spec = P(("pod", "data"), None, "model")
     assert pickle.loads(pickle.dumps(spec)) == spec
     assert type(copy.deepcopy(spec)) is P
