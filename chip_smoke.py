@@ -13,8 +13,10 @@
    (for the relax sweep every case of `tests/_sweep_cases.py`, where the
    autotuner's `sorted` impl is held equal to the kernel as well; for
    min-plus and the legacy edge relax every case of
-   `tests/_kernel_cases.py`, as `tests/test_torch_cuda.py` runs them; and
-   the ValueError of each block_v limit).
+   `tests/_kernel_cases.py`, as `tests/test_torch_cuda.py` runs them; for
+   the embedding bag D in {1, 8, 64, 100} × L in {1, 7, 50}, B = 1 and 512
+   at L = 50, D = 64 (bags split over warps), two calls bit-equal, and
+   wrapped and NaN indices; and the ValueError of each block_v limit).
 3. Drives the port's main path through `repro_torch.api` at full size:
    Barabási–Albert(2^20, m=4, seed 0), capacity 2^23 edges, 32 landmarks;
    build; one mixed BHL⁺ tick of 512 inserts + 512 deletes; 1024 uniform
@@ -53,7 +55,9 @@
    `inf` fill and its sweep); the embedding bag through
    `ops.embed_bag` at the MIND config's widths (10,485,760 × 64 float32
    table, bags of 50, batches of 512 and 65,536), beside
-   `torch.nn.functional.embedding_bag` as the library yardstick. Each of
+   `torch.nn.functional.embedding_bag` as the library yardstick, with its
+   own device microseconds under the profiler beside the launch floor
+   and the launch geometry `embed_bag_geometry` chose. Each of
    those two entry points is its kernel's path: its count is set to 0
    just before the call and read just after. Every profiler pass must
    record each hand-written kernel as often as its wrapper launched it
@@ -341,7 +345,8 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
 #: The device name of each hand-written kernel that the profiler passes
 #: check, and its wrapper's count in `read_launches`.
 COUNTED = {"relax_sweep_kernel": "relax_sweep", "minplus_kernel": "minplus",
-           "edge_relax_kernel": "edge_relax"}
+           "edge_relax_kernel": "edge_relax",
+           "embed_bag_kernel": "embed_bag"}
 PROFILER_TRIES = 3
 #: Profiler passes that recorded fewer device kernels than were launched,
 #: each discarded and run again (see `device_kernels`).
@@ -628,6 +633,24 @@ def check_embed_bag_small(torch, np, dev, rng) -> int:
             w = torch.from_numpy(
                 rng.random((b, bag)).astype(np.float32)).to(dev)
             close(table, idx, w, f"D={d} L={bag}")
+    # Both launch regimes at the MIND widths (L = 50, D = 64): bags split
+    # over warps (B = 1, 512) and a warp a bag (B = 65,536, phase 5);
+    # then two calls on one input, which must give the same bits.
+    n, d, bag = 100_000, MIND_DIM, MIND_HIST
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    table = torch.from_numpy(
+        rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    for b in (1, 512):
+        if ek.embed_bag_geometry(b, bag, d, sms).warps == 1:
+            raise AssertionError(f"embed_bag B={b} does not split its bags")
+        idx = torch.from_numpy(
+            rng.integers(-n, n, (b, bag)).astype(np.int32)).to(dev)
+        w = torch.from_numpy(rng.random((b, bag)).astype(np.float32)).to(dev)
+        close(table, idx, w, f"B={b} L={bag} D={d}")
+    if not torch.equal(ek.embed_bag(table, idx, w),
+                       ek.embed_bag(table, idx, w)):
+        raise AssertionError("embed_bag: two calls on one input differ")
+    cases += 1
     n, d = 5, 8
     table = torch.arange(n * d, dtype=torch.float32, device=dev).view(n, d)
     idx = torch.tensor([[-1, 0], [n, 0], [-n, 1], [-n - 1, 2], [2, n + 3]],
@@ -847,9 +870,11 @@ def time_edge_relax(torch, dev, g1, lab1) -> dict:
     return row
 
 
-def time_embed_bag(torch, dev) -> list:
+def time_embed_bag(torch, dev, floor_us: float) -> list:
     """Kernel D through `ops.embed_bag` (mean, ~80 % mask) at the MIND
-    config's widths, beside `F.embedding_bag` on the same weights."""
+    config's widths, beside `F.embedding_bag` on the same weights: event
+    ms per call, the kernel's own device µs from the profiler beside the
+    launch floor `floor_us`, and the launch geometry the wrapper chose."""
     import torch.nn.functional as F
     from repro_torch.kernels.embed_bag import kernel as ek
     from repro_torch.kernels.embed_bag import ops as eops
@@ -888,6 +913,12 @@ def time_embed_bag(torch, dev) -> list:
         lib_ms = min(cuda_ms(lambda: F.embedding_bag(
             idx64, table, per_sample_weights=w, mode="sum"), reps)
             for _ in range(2))
+        kernel_us = profiled_us(torch, lambda: ek.embed_bag(table, idx_m, w),
+                                "embed_bag_kernel")
+        geo = ek.embed_bag_geometry(
+            b, MIND_HIST, MIND_DIM,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            table.data_ptr() % 16 == 0)
         # What this run's data needs: each distinct gathered row once,
         # idx and w of every slot, out once. (Every slot's row, the
         # count with repeats, would be B·L·4·D.)
@@ -896,13 +927,18 @@ def time_embed_bag(torch, dev) -> list:
                   + 4 * b * MIND_DIM)
         bms, by = bound_ms(nbytes, 2 * b * MIND_HIST * MIND_DIM)
         rows.append(dict(batch=b, launches=launches, max_abs_err=err, ms=ms,
+                         kernel_device_us=kernel_us, launch_floor_us=floor_us,
+                         geometry=dataclasses.asdict(geo),
                          plain_ms=plain, library_ms=lib_ms, bound_ms=bms,
                          bound_by=by, bytes=nbytes, distinct_rows=distinct,
                          bytes_every_slot=b * MIND_HIST * (4 * MIND_DIM + 8)
                          + 4 * b * MIND_DIM,
                          lib_max_abs_err=float((got - lib).abs().max())))
         log(f"embed_bag B={b} L={MIND_HIST} D={MIND_DIM} (table "
-            f"{MIND_ITEMS} rows, {distinct} distinct gathered): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"{MIND_ITEMS} rows, {distinct} distinct gathered; {geo}): "
+            f"kernel {ms:.4f} ms per call (events), {kernel_us:.2f} us on "
+            f"the device (profiler; launch floor {floor_us:.2f} us), plain "
+            f"{plain:.4f} ms, "
             f"F.embedding_bag {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
             f"max_abs_err {err:.3g} (vs library "
             f"{rows[-1]['lib_max_abs_err']:.3g})")
@@ -3719,7 +3755,7 @@ def main() -> int:
             f"device us), bound {bms:.6f} ms ({by}), max_abs_err {err}")
 
     er_row = time_edge_relax(torch, dev, g1, lab1)
-    bag_rows = time_embed_bag(torch, dev)
+    bag_rows = time_embed_bag(torch, dev, floor_us)
 
     # --- 6. the serving loop at full width ------------------------------------
     serve, serve_base, final_a = run_serve(

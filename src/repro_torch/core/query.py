@@ -14,7 +14,7 @@ import torch
 from repro_torch.core.engine import WAVES, RelaxPlan, relax_sweep
 from repro_torch.core.labelling import HighwayLabelling, landmark_onehot
 from repro_torch.graphs.coo import INF_D, Graph
-from repro_torch.kernels.minplus.kernel import minplus
+from repro_torch.kernels.minplus import ops as minplus_ops
 
 
 def effective_label_planes(dist: torch.Tensor, hub: torch.Tensor,
@@ -48,11 +48,11 @@ def query_upper_bound(labelling: HighwayLabelling, s: torch.Tensor,
                       use_kernel: bool | None = None) -> torch.Tensor:
     """d⊤ for query pairs (s[q], t[q]) — Eq. 3.
 
-    use_kernel=True goes through `kernels.minplus` (the CUDA kernel on the
-    GPU), which clamps at INF32 = 2^29 like the reference's Pallas kernel;
-    False is the reference's jnp contraction, clamped at INF_D. None picks
-    the kernel on the GPU. `batched_query`'s answers are the same either
-    way.
+    use_kernel=True goes through `kernels.minplus.ops.minplus_bound` (the
+    CUDA kernel on the GPU), which clamps at INF32 = 2^29 like the
+    reference's Pallas kernel; False is the reference's jnp contraction,
+    clamped at INF_D. None picks the kernel on the GPU. `batched_query`'s
+    answers are the same either way.
     """
     lab = effective_labels(labelling)
     s_lab = lab[:, s.to(torch.int64)].T.clamp_max(INF_D).contiguous()
@@ -60,7 +60,8 @@ def query_upper_bound(labelling: HighwayLabelling, s: torch.Tensor,
     if use_kernel is None:
         use_kernel = lab.device.type == "cuda"
     if use_kernel:
-        return minplus(s_lab, labelling.highway.contiguous(), t_lab)
+        return minplus_ops.minplus_bound(
+            s_lab, labelling.highway.contiguous(), t_lab)
     mid = (s_lab[:, :, None] + labelling.highway[None, :, :]).amin(dim=1)
     return (mid + t_lab).amin(dim=1).clamp_max(INF_D)
 

@@ -81,7 +81,7 @@ from repro_torch.core.snapshot import (frontier_seed_blocks,
                                        search_wave_fns, update_finish)
 from repro_torch.graphs.coo import (INF_D, BatchUpdate, Graph, apply_batch,
                                     resolve_seed_weights)
-from repro_torch.kernels.minplus.kernel import minplus
+from repro_torch.kernels.minplus import ops as minplus_ops
 
 #: Plane-sharding axes during maintenance: landmark planes over the whole
 #: grid (`model` major, `data` minor; the data axis is idle while the
@@ -629,7 +629,7 @@ def _shard_query_core(mesh, g: Graph, labelling: HighwayLabelling,
             h = labelling.highway[m * p:(m + 1) * p].to(dev).contiguous()
             kernel = dev.type == "cuda" if use_kernel is None else use_kernel
             if kernel:
-                return minplus(s_lab[m], h, t_all)
+                return minplus_ops.minplus_bound(s_lab[m], h, t_all)
             if dev.type == "cuda":
                 raise ValueError("use_kernel=False runs the plain min-plus "
                                  "contraction, on the CPU only; on the GPU "

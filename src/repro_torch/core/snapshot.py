@@ -356,6 +356,11 @@ def search_chunk_frontier(g_new: Graph, best: torch.Tensor,
     return best, front, front.any()
 
 
+#: Out of place: nothing here donates a plane, so the reference's donating
+#: variant is `search_chunk_frontier` itself.
+fused_search_chunk_frontier = search_chunk_frontier
+
+
 def repair_start_frontier(g_new: Graph, aff: torch.Tensor,
                           dist: torch.Tensor, hub: torch.Tensor,
                           hub_mask: torch.Tensor, plan: RelaxPlan):
@@ -384,6 +389,11 @@ def repair_chunk_frontier(g_new: Graph, cur: torch.Tensor,
         cur, front, _ = frontier_wave("repair", plan, g_new, full, masked,
                                       cur, front)
     return cur, front, front.any()
+
+
+#: Out of place: nothing here donates a plane, so the reference's donating
+#: variant is `repair_chunk_frontier` itself.
+fused_repair_chunk_frontier = repair_chunk_frontier
 
 
 def fused_search_start_frontier(g_new: Graph, batch: BatchUpdate,

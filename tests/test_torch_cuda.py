@@ -223,6 +223,57 @@ def test_embed_bag_kernel_index_wrap_and_nan(dev):
     assert not torch.isnan(got[[0, 2]]).any()
 
 
+def _mind_bags(dev, b, seed, nan=True):
+    """Bags at the MIND widths (L = 50, D = 64) over a 100,000-row table,
+    a few slots wrapped (-1) and, where `nan`, one out of range in the
+    last bag."""
+    g = torch.Generator().manual_seed(seed)
+    n = 100_000
+    table = torch.randn(n, 64, generator=g).to(dev)
+    idx = torch.randint(0, n, (b, 50), generator=g, dtype=torch.int32)
+    idx[::7, 3] = -1
+    if nan:
+        idx[-1, 49] = n
+    return table, idx.to(dev), torch.rand(b, 50, generator=g).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 512, 65_536])
+def test_embed_bag_kernel_at_mind_widths(dev, b):
+    """Both launch regimes of `embed_bag_geometry`: a bag split over
+    warps (B = 1, 512) and a warp a bag (B = 65,536)."""
+    table, idx, w = _mind_bags(dev, b, b)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = ek.embed_bag_geometry(b, 50, 64, sms)
+    assert (geo.warps > 1) == (b < 65_536)
+    got = _embed_bag_close(table, idx, w)
+    assert torch.isnan(got[-1]).all() and not torch.isnan(got[:-1]).any()
+
+
+@pytest.mark.cuda
+def test_embed_bag_kernel_misaligned_table(dev):
+    """A table 4 bytes off a 16-byte boundary goes by floats (the
+    scalar path) at D = 64."""
+    table, idx, w = _mind_bags(dev, 512, 5)
+    flat = torch.empty(table.numel() + 1, device=dev)
+    shifted = flat[1:].view_as(table)
+    shifted.copy_(table)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    torch.testing.assert_close(_embed_bag_close(shifted, idx, w),
+                               ek.embed_bag(table, idx, w), rtol=1e-5,
+                               atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [512, 65_536])
+def test_embed_bag_kernel_is_deterministic(dev, b):
+    """Two calls on one input give the same bits: the kernel adds its
+    partial sums in a fixed order, without atomics."""
+    table, idx, w = _mind_bags(dev, b, 7 * b, nan=False)
+    assert torch.equal(ek.embed_bag(table, idx, w),
+                       ek.embed_bag(table, idx, w))
+
+
 @pytest.mark.cuda
 def test_embed_bag_ops_masked_mean_on_card(dev):
     g = torch.Generator().manual_seed(3)

@@ -5,7 +5,9 @@ what the wrapper runs for CPU tensors) and the entry `ops.embed_bag` are
 held to the reference's Pallas `embed_bag_pallas` (interpret mode), its
 `ref.embed_bag` and its `ops.embed_bag`, over the reference's shape grid
 with float32 and float16 tables, sum and mean, with and without a mask,
-and the wrapped (-1, -N) and NaN (N, -N-1) index cases.
+and the wrapped (-1, -N) and NaN (N, -N-1) index cases. Kernel D's
+launch geometry (`embed_bag_geometry`), which only the card runs, is
+checked here against a mirror of the kernel's index arithmetic.
 
 Tolerance: the sums are float32 in another order than the reference's,
 so rtol = atol = 1e-5 for float32 tables; for float16 tables the
@@ -112,3 +114,84 @@ def test_embed_bag_rejects_bad_arguments():
         tker.embed_bag(t, i, ww[:, :1])
     with pytest.raises(ValueError, match="mode"):
         tops.embed_bag(t, i, mode="max")
+
+
+# --- kernel D's launch geometry ---------------------------------------------
+
+SMS = 132                # H100 SXM
+SMEM_LIMIT = 232_448     # 227 KB, the most a CTA may opt in to
+
+
+def _bags_of(geo, b):
+    """The bag each (CTA, bag-in-CTA) serves, as `embed_bag.cu` reckons
+    it (bag = blockIdx.x * bags + warp / warps), the idle tail dropped."""
+    return [k for k in range(geo.grid(b) * geo.bags) if k < b]
+
+
+def _slots_of(geo, l):
+    """The bag slots each warp of a bag and each slot group reads, over
+    the kernel's chunks of 32 slots and its steps of `groups * unroll`."""
+    slots = []
+    for wb in range(geo.warps):
+        lo = min(wb * geo.per_warp, l)
+        hi = min(lo + geo.per_warp, l)
+        for c0 in range(lo, hi, 32):
+            cnt = min(32, hi - c0)
+            for t0 in range(0, cnt, geo.groups * tker.EMBED_BAG_UNROLL):
+                for u in range(tker.EMBED_BAG_UNROLL):
+                    for g in range(geo.groups):
+                        t = t0 + u * geo.groups + g
+                        if t < cnt:
+                            slots.append(c0 + t)
+    return slots
+
+
+def _columns_of(geo, d):
+    """The floats of a row each column tile's lanes write (vec a lane)."""
+    cols = d // geo.vec
+    return [j * geo.vec + e for j0 in range(0, cols, geo.lanes)
+            for c in range(geo.lanes) if (j := j0 + c) < cols
+            for e in range(geo.vec)]
+
+
+@pytest.mark.parametrize("d", [1, 8, 64, 100])
+@pytest.mark.parametrize("l", [1, 7, 50])
+@pytest.mark.parametrize("b", [1, 37, 512, 65_536])
+def test_embed_bag_geometry(b, l, d):
+    """Every (bag, slot, column) is covered exactly once (the kernel's
+    mapping is a product of the three, each checked as a bijection);
+    all 32 lanes of a warp hold a slot group; a CTA stays within 1024
+    threads (the kernel's own cap is 256) and 227 KB of shared memory;
+    B = 512 splits a bag over warps wherever it has more slots than a
+    warp has groups, and B = 65,536 never does."""
+    geo = tker.embed_bag_geometry(b, l, d, SMS)
+    assert sorted(_bags_of(geo, b)) == list(range(b))
+    assert sorted(_slots_of(geo, l)) == list(range(l))
+    assert sorted(_columns_of(geo, d)) == list(range(d))
+    assert geo.lanes * geo.groups == 32
+    assert geo.lanes & (geo.lanes - 1) == 0 and geo.lanes <= 32
+    assert geo.lanes >= min(d // geo.vec, 32)
+    assert geo.threads <= 32 * tker.EMBED_BAG_CTA_WARPS <= 1024
+    assert geo.smem_bytes <= SMEM_LIMIT
+    assert geo.vec == (4 if d % 4 == 0 else 1)
+    if b == 65_536:
+        assert geo.warps == 1
+    if b == 512 and l > geo.groups:
+        assert geo.warps > 1
+
+
+def test_embed_bag_geometry_at_the_mind_shapes():
+    """D = 64 on 132 SMs: half-warp slot groups; B = 512 takes five warps
+    a bag, ten slots each (2,560 warps, 19 an SM); B = 65,536 one warp a
+    bag, eight bags a CTA; a misaligned table goes by floats, in 32-lane
+    groups over two column tiles."""
+    serve = tker.embed_bag_geometry(512, 50, 64, SMS)
+    assert (serve.vec, serve.lanes, serve.groups, serve.warps, serve.bags,
+            serve.per_warp) == (4, 16, 2, 5, 1, 10)
+    assert serve.grid(512) == 512 and serve.smem_bytes == 5 * 16 * 16
+    train = tker.embed_bag_geometry(65_536, 50, 64, SMS)
+    assert (train.warps, train.bags, train.per_warp) == (1, 8, 50)
+    assert train.grid(65_536) == 8192 and train.smem_bytes == 0
+    scalar = tker.embed_bag_geometry(512, 50, 64, SMS, aligned=False)
+    assert (scalar.vec, scalar.lanes, scalar.groups) == (1, 32, 1)
+    assert sorted(_columns_of(scalar, 64)) == list(range(64))

@@ -232,3 +232,75 @@ def test_resolve_device_turns_off_bf16_reduced_precision_reduction():
         assert flags.allow_bf16_reduced_precision_reduction is False
     finally:
         flags.allow_bf16_reduced_precision_reduction = was
+
+
+#: Public names of `src/repro` that the port has no counterpart of, by
+#: design, each with its reason. A key is a module path under the
+#: package (every name of that module), `path:NAME`, or "*" and a
+#: suffix (a name with that ending in any module).
+NAME_ALLOWLIST = {
+    # The Pallas launchers and their block constants: the port launches
+    # hand-written CUDA kernels through ctypes wrappers instead
+    # (`kernel.minplus`, `kernel.edge_relax`, `kernel.relax_sweep`,
+    # `kernel.embed_bag`), with their own launch geometry.
+    "*_pallas": "Pallas launcher; the ctypes wrapper replaces it",
+    "kernels/minplus/kernel.py:DEFAULT_BB": "Pallas block of query rows",
+    "kernels/minplus/kernel.py:LANES": "Pallas lane width",
+    "kernels/embed_bag/kernel.py:DEFAULT_BB": "Pallas block of bags",
+    # The jnp oracles: their plain twins live beside each kernel, in the
+    # kernel's own module, as the port's rule for kernels asks.
+    "kernels/minplus/ref.py": "plain twin is kernel.minplus_plain "
+                              "(INF32 is kernel.INF32)",
+    "kernels/embed_bag/ref.py": "plain twin is kernel.embed_bag_plain",
+    # The port has no backend switch: a tensor's device picks the kernel
+    # (CUDA) or its plain twin (CPU), and `RelaxPlan.impl` the autotuned
+    # impl; the COO path is `relax_sweep(None, ...)`, a plan of None.
+    "core/engine.py:BACKENDS": "the device picks kernel or plain twin",
+    "core/engine.py:JNP_PLAN": "the port's COO path is plan=None",
+}
+
+
+def _top_level_names(path: Path, with_imports: bool) -> set:
+    """Public names bound at the top level of `path`, parsed with `ast`:
+    defs, classes and assignments, and imports where `with_imports`."""
+    import ast
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            out.add(node.target.id)
+        elif with_imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            out.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return {n for n in out if not n.startswith("_")}
+
+
+def _allowed(rel: str, name: str) -> bool:
+    return (rel in NAME_ALLOWLIST or f"{rel}:{name}" in NAME_ALLOWLIST
+            or any(k.startswith("*") and name.endswith(k[1:])
+                   for k in NAME_ALLOWLIST))
+
+
+def test_every_public_reference_name_has_a_counterpart():
+    """Each public top-level name of a `src/repro` module is bound at the
+    top level of its counterpart in `src/repro_torch` (same path), unless
+    `NAME_ALLOWLIST` says why not. Both packages are parsed, not
+    imported."""
+    ref, port = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
+    missing = []
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        twin = port / rel
+        have = (_top_level_names(twin, with_imports=True) if twin.is_file()
+                else set())
+        missing += [f"{rel}:{name}" for name in
+                    sorted(_top_level_names(path, with_imports=False) - have)
+                    if not _allowed(rel, name)]
+    assert not missing, f"no counterpart in the port: {missing}"
+    stale = [k for k in NAME_ALLOWLIST if not k.startswith("*") and not (
+        ref / k.split(":")[0]).is_file()]
+    assert not stale, f"allowlist names no reference module: {stale}"

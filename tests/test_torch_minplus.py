@@ -6,7 +6,9 @@ the wrapper runs for CPU tensors) against the reference Pallas
 square and rectangular H, values up to INF32, and H past the 48 KB the
 first kernel took; the edge cases of `tests/_kernel_cases.py`, which the
 card runs against the kernel, against the oracle; and the kernel's launch
-geometry (`minplus_geometry`), which only the card runs.
+geometry (`minplus_geometry`), which only the card runs. The public
+entry `ops.minplus_bound` against the reference's `ops.minplus_bound`
+through both of its paths, at P = R and P < R.
 """
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ import pytest
 import torch
 
 from repro.kernels.minplus import kernel as jker
+from repro.kernels.minplus import ops as jops
 from repro.kernels.minplus import ref as jref
 from repro_torch.kernels.minplus import kernel as tker
+from repro_torch.kernels.minplus import ops as tops
 
 import _kernel_cases as kcases
 
@@ -46,6 +50,21 @@ def test_minplus_plain_matches_reference(b, p, r):
     np.testing.assert_array_equal(
         got, np.asarray(jker.minplus_pallas(jnp.asarray(s), jnp.asarray(h),
                                             jnp.asarray(t), interpret=True)))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("b,p,r", [(32, 32, 32), (7, 8, 32), (5, 3, 7)])
+def test_minplus_bound_matches_reference_ops(b, p, r, use_pallas):
+    """`ops.minplus_bound`, the port's public entry of the bound, against
+    the reference's: the full bound (P = R) and a shard-local row slice
+    (P < R), with int64 inputs that the entry casts to int32."""
+    s, h, t = _inputs(b, p, r, 7 * b + p)
+    got = tops.minplus_bound(*(torch.from_numpy(x.astype(np.int64))
+                               for x in (s, h, t)))
+    assert got.dtype == torch.int32 and got.shape == (b,)
+    want = jops.minplus_bound(jnp.asarray(s), jnp.asarray(h), jnp.asarray(t),
+                              use_pallas=use_pallas)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_minplus_rejects_bad_inputs():

@@ -7,7 +7,9 @@ of `repro`'s update on the same numpy inputs, bit for bit, through the
 same sequence of phases as `repro`'s own pipelined update. No pipelined
 update may write into a tensor of the snapshot it started from (queries
 still read it), which `_version` counters pin. Also the store's contract,
-the plan cache's two live snapshots, and the scenario registry.
+the plan cache's two live snapshots, the scenario registry, and the
+out-of-place aliases of the reference's donating frontier chunks
+(`fused_search_chunk_frontier`, `fused_repair_chunk_frontier`).
 """
 from __future__ import annotations
 
@@ -223,6 +225,77 @@ def test_frontier_pipeline_matches_reference(inst, fused, threshold):
     np.testing.assert_array_equal(aff.numpy(), np.asarray(jaff))
     np.testing.assert_array_equal(nxt.labelling.dist.numpy(),
                                   np.asarray(jnxt.labelling.dist))
+
+
+def _frontier_plans(gj, bj, g_next, threshold):
+    """The port's and the reference's frontier plans of the next graph,
+    as `test_frontier_pipeline_matches_reference` makes them."""
+    plan = RelaxEngine(block_v=32, frontier=True, frontier_block=8,
+                       frontier_threshold=threshold,
+                       device="cpu").prepare(g_next)
+    gj_next = jcoo.apply_batch(gj, bj)
+    jplan = jeng.RelaxEngine(backend="jnp", frontier=True, frontier_block=8,
+                             frontier_threshold=threshold).prepare(gj_next)
+    return plan, gj_next, jplan
+
+
+def _assert_chunk(got, want):
+    """A frontier chunk's (plane, front, changed), bit for bit."""
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("improved", [True, False])
+@pytest.mark.parametrize("threshold", [0.25, 1.0])
+def test_fused_search_chunk_frontier_matches_reference(inst, threshold,
+                                                       improved):
+    """`snapshot.fused_search_chunk_frontier` (the out-of-place alias)
+    against the reference's donating chunk, from the same seed, 2 sweeps:
+    at threshold 0.25 the waves run full, at 1.0 masked."""
+    gj, labj, bj, _ = inst
+    snap, bt = _port(gj, labj, bj)
+    g_next = tcoo.apply_batch(snap.graph, bt)
+    plan, gj_next, jplan = _frontier_plans(gj, bj, g_next, threshold)
+    lab = snap.labelling
+    seed, seeded, bound, hub_mask = tsnap.search_seed(
+        g_next, bt, lab.dist, lab.hub, lab.landmarks, improved)
+    got = tsnap.fused_search_chunk_frontier(
+        g_next, seed.clone(), tsnap.frontier_seed_blocks(plan, seeded), seed,
+        bound, hub_mask, plan, improved, 2)
+    jseed, jseeded, jbound, jhub_mask = jsnap.search_seed(
+        gj_next, bj, labj.dist, labj.hub, labj.landmarks, improved)
+    np.testing.assert_array_equal(seed.numpy(), np.asarray(jseed))
+    want = jsnap.fused_search_chunk_frontier(
+        gj_next, jseed + 0, jsnap.frontier_seed_blocks(jplan, jseeded), jseed,
+        jbound, jhub_mask, jplan, improved=improved, sweeps=2)
+    _assert_chunk(got, want)
+
+
+@pytest.mark.parametrize("threshold", [0.25, 1.0])
+def test_fused_repair_chunk_frontier_matches_reference(inst, threshold):
+    """`snapshot.fused_repair_chunk_frontier` (the out-of-place alias)
+    against the reference's donating chunk, from the repair start of the
+    reference's affected set, 2 sweeps."""
+    gj, labj, bj, want = inst
+    snap, bt = _port(gj, labj, bj)
+    g_next = tcoo.apply_batch(snap.graph, bt)
+    plan, gj_next, jplan = _frontier_plans(gj, bj, g_next, threshold)
+    lab = snap.labelling
+    affj = want[True][2]
+    aff = torch.from_numpy(np.array(affj))
+    hub_mask = tsnap.search_seed(g_next, bt, lab.dist, lab.hub,
+                                 lab.landmarks)[3]
+    cur, front = tsnap.repair_start_frontier(g_next, aff, lab.dist, lab.hub,
+                                             hub_mask, plan)
+    got = tsnap.fused_repair_chunk_frontier(g_next, cur, front, aff,
+                                            hub_mask, plan, 2)
+    jhub_mask = jsnap.search_seed(gj_next, bj, labj.dist, labj.hub,
+                                  labj.landmarks)[3]
+    jcur, jfront = jsnap.repair_start_frontier(gj_next, affj, labj.dist,
+                                               labj.hub, jhub_mask, jplan)
+    np.testing.assert_array_equal(cur.numpy(), np.asarray(jcur))
+    _assert_chunk(got, jsnap.fused_repair_chunk_frontier(
+        gj_next, jcur, jfront, affj, jhub_mask, jplan, sweeps=2))
 
 
 @pytest.mark.parametrize("mode", ["unfused", "fused", "frontier",
