@@ -11,7 +11,9 @@
    integer kernels with `torch.equal`, the embedding bag to rtol = atol =
    1e-5 (float32 sums in another order), over each kernel's edge cases
    (for the relax sweep every case of `tests/_sweep_cases.py`, where the
-   autotuner's `sorted` impl is held equal to the kernel as well; for
+   autotuner's `sorted` impl is held equal to the kernel as well, and
+   `ops.relax_sweep` in the reference's call form, keys and hub one
+   plane [V] and `w=None`, one launch a call, on three of them; for
    min-plus and the legacy edge relax every case of
    `tests/_kernel_cases.py`, as `tests/test_torch_cuda.py` runs them; for
    the embedding bag D in {1, 8, 64, 100} × L in {1, 7, 50}, B = 1 and 512
@@ -538,8 +540,8 @@ def check_kernels_small(torch, np, dev) -> int:
             # The autotuner's sorted impl on the same sweep.
             sg = rops.prepare_sorted(c.src, c.dst, c.keep, c.n, device=dev)
             srt = rops.relax_sweep_sorted(args[0], sg, args[7], c.step, c.inf,
-                                          args[8], clear_bit=c.clear,
-                                          hub=args[1])
+                                          clear_bit=c.clear, hub=args[1],
+                                          w=args[8])
             torch.cuda.synchronize()
             if not torch.equal(srt, got):
                 raise AssertionError(f"sorted impl != relax_sweep: {name} "
@@ -556,7 +558,7 @@ def check_kernels_small(torch, np, dev) -> int:
             raise
     else:
         raise AssertionError(f"relax_sweep took block_v={limit + 1}")
-    cases += 1
+    cases += 1 + check_reference_form(torch, np, dev)
 
     # Min-plus over every case of tests/_kernel_cases.py.
     for name in kernel_cases.minplus_names():
@@ -571,6 +573,56 @@ def check_kernels_small(torch, np, dev) -> int:
     rng = np.random.default_rng(0)
     return cases + check_edge_relax_small(torch, dev) \
         + check_embed_bag_small(torch, np, dev, rng)
+
+
+#: Sweep cases that phase 2 also runs through `ops.relax_sweep` in the
+#: reference's call form: chunked rows over two shards with a hub, one
+#: plane at block_v 512, and keys that saturate.
+REFERENCE_FORM_CASES = ("rows-be7-s2-p3", "planes1-bv512", "near-inf")
+
+
+def check_reference_form(torch, np, dev) -> int:
+    """Kernel A through `ops.relax_sweep` in the reference's call forms,
+    positional: `(keys, bg, mask, 1, INF32)` and `(keys, bg, mask, 2,
+    INF32, 1, hub)`, with keys and hub one plane [V] and `w=None`. Each
+    call launches kernel A once (its count read back as 1) and returns
+    [V], equal bit for bit to the plain version on the CPU."""
+    import _sweep_cases as sweep_cases
+    from repro_torch.kernels.edge_relax import kernel as rk
+    from repro_torch.kernels.edge_relax import ops as rops
+    checked = 0
+    for name in REFERENCE_FORM_CASES:
+        c = sweep_cases.make(name)[0]
+        mask = c.mask if c.mask.ndim == 1 else c.mask[0]
+        hub = c.hub[0] if c.hub is not None else np.arange(c.n) % 3 == 0
+        tiles = {d: rops.prepare_topology(c.src, c.dst, c.keep, c.n,
+                                          c.block_v, c.shards, c.block_e,
+                                          device=d) for d in (dev, "cpu")}
+
+        def call(d, form):
+            def t(x):
+                return torch.from_numpy(np.ascontiguousarray(x)).to(d)
+            extra = (t(hub),) if len(form) == 3 else ()
+            return rops.relax_sweep(t(c.keys[0]), tiles[d], t(mask), *form,
+                                    *extra)
+        for form in ((1, rk.INF32), (2, rk.INF32, 1)):
+            rk.launches = 0
+            got = call(dev, form)
+            torch.cuda.synchronize()
+            launched = rk.launches
+            want = call("cpu", form)
+            if launched != 1 or got.shape != (c.n,) \
+                    or not torch.equal(got.cpu(), want):
+                raise AssertionError(
+                    f"relax_sweep in the reference's form {form}: {name} "
+                    f"{c.label}: {launched} launches, shape "
+                    f"{tuple(got.shape)}, "
+                    f"{int((got.cpu() != want).sum())} entries differ")
+            checked += 1
+    log(f"phase 2: ops.relax_sweep in the reference's form (keys [V], "
+        f"w=None, hub [V]) on {', '.join(REFERENCE_FORM_CASES)}: one "
+        f"launch a call, equal to the plain version on the CPU")
+    return checked
 
 
 def check_edge_relax_small(torch, dev) -> int:
@@ -2192,13 +2244,15 @@ def run_mind(torch, np, dev, card) -> dict:
     batch = synthetic.materialize(synthetic.mind_train_layout(
         b_train, cfg.hist_len, cfg.n_items), seed=3, device=dev)
 
-    def train(state, opt, steps: int, count_syncs_at: int):
-        return timed_train(torch, lambda p, b: mind.train_loss(p, b, cfg),
-                           state, batch, opt, steps, count_syncs_at)
+    def loss(p, b):
+        return mind.train_loss(p, b, cfg)
 
+    # The initial state goes to timed_train as a temporary, its only
+    # reference, so its m and v die with step 1; the initial params stay
+    # live through `params`, as in the GNN phase.
     opt = opt_lib.AdamWConfig(lr=MIND_LR)
-    state, run = train(tts.init_train_state(params, opt), opt, MIND_STEPS,
-                       MIND_STEPS)
+    state, run = timed_train(torch, loss, tts.init_train_state(params, opt),
+                             batch, opt, MIND_STEPS, MIND_STEPS)
     del params
     losses = run["losses"]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -2229,8 +2283,9 @@ def run_mind(torch, np, dev, card) -> dict:
     opt_ef = opt_lib.AdamWConfig(lr=MIND_LR, compress="int8_ef")
     params = state["params"]
     del state
-    state, run_ef = train(tts.init_train_state(params, opt_ef), opt_ef,
-                          MIND_EF_STEPS, 0)
+    state, run_ef = timed_train(torch, loss,
+                                tts.init_train_state(params, opt_ef), batch,
+                                opt_ef, MIND_EF_STEPS, 0)
     del params
     if not all(np.isfinite(run_ef["losses"])):
         raise AssertionError(f"phase 11: int8_ef losses {run_ef['losses']}")

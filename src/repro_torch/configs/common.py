@@ -7,7 +7,9 @@ that the dry run (`launch/dryrun.py`) and chip_smoke read. A cell's
 `arg_specs` are meta tensors (the reference's ShapeDtypeStructs), its
 `in_specs`/`out_specs` trees of `launch.mesh.P` (its PartitionSpecs),
 and `out_shapes` the meta tensors its step returns, which the reference
-reads off the compiled program and the port states beside `out_specs`.
+reads off the compiled program and the port states beside `out_specs`
+(None, as in a cell made with the reference's eight fields: the dry run
+runs the step on the meta `arg_specs` to get them).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ class Cell:
     in_specs: tuple    # P trees (positional)
     out_specs: Any     # P tree
     flops_note: dict   # {model_flops, tokens, ...} for §Roofline
-    out_shapes: Any    # meta-tensor tree of what step_fn returns
+    out_shapes: Any = None  # meta-tensor tree of what step_fn returns
 
 
 LM_SHAPES = {

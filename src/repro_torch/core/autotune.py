@@ -206,8 +206,8 @@ def tune(g, *, shards: int = 1, block_v: int = 512, r_planes: int = 8,
                                           device=g.device)
 
             def wave(ks, hb, m, sg=tiles):
-                return er_ops.relax_sweep_sorted(ks, sg, m, 2, inf, g.w,
-                                                 clear_bit=1, hub=hb)
+                return er_ops.relax_sweep_sorted(ks, sg, m, 2, inf,
+                                                 clear_bit=1, hub=hb, w=g.w)
         else:
             tiles = er_ops.prepare_topology(
                 src, dst, keep, g.n, block_v=cfg.block_v,
@@ -215,8 +215,8 @@ def tune(g, *, shards: int = 1, block_v: int = 512, r_planes: int = 8,
                 device=g.device)
 
             def wave(ks, hb, m, bg=tiles):
-                return er_ops.relax_sweep(ks, bg, m, 2, inf, g.w,
-                                          clear_bit=1, hub=hb)
+                return er_ops.relax_sweep(ks, bg, m, 2, inf, clear_bit=1,
+                                          hub=hb, w=g.w)
         compile_us, steady_us = measure_compiled(wave, keys, hub, mask,
                                                  warmup=warmup, iters=iters)
         measured.append((cfg, compile_us, steady_us))

@@ -99,10 +99,10 @@ def relax_sweep(plan: RelaxPlan | None, g: Graph, keys: torch.Tensor,
         return masked_segment_min(cand, g.dst, g.n, mask, inf)
     if plan.impl == "sorted":
         return er_ops.relax_sweep_sorted(keys, plan.sorted_tiles, mask, step,
-                                         inf, g.w, clear_bit=clear_bit,
-                                         hub=hub)
-    return er_ops.relax_sweep(keys, plan.tiles, mask, step, inf, g.w,
-                              clear_bit=clear_bit, hub=hub)
+                                         inf, clear_bit=clear_bit, hub=hub,
+                                         w=g.w)
+    return er_ops.relax_sweep(keys, plan.tiles, mask, step, inf,
+                              clear_bit=clear_bit, hub=hub, w=g.w)
 
 
 def gather_rows(plan: RelaxPlan, g: Graph, ridx: torch.Tensor):
@@ -188,26 +188,29 @@ class RelaxEngine:
               the engine's. `tune_table` (a `TuneTable` or a JSON path)
               keeps the winners, so a restart on the same table measures
               nothing; `tune_count` counts measurement runs.
+    cache_plans: plans kept in the fingerprint-keyed LRU (at least 1).
+              The default 2 fits a serving pipeline, which keeps two
+              snapshots live at once, so re-preparing either must not
+              thrash an O(E log E) retile.
     device:   where plans live; None is the GPU (raises without one).
     """
 
-    #: Plans kept in the LRU: a serving pipeline keeps two snapshots live
-    #: at once, so re-preparing either must not thrash an O(E log E)
-    #: retile.
-    CACHE_PLANS = 2
-
     def __init__(self, block_v: int = 512, block_e: int | None = None, *,
-                 shards: int = 1, frontier: bool = False,
+                 shards: int = 1, cache_plans: int = 2,
+                 frontier: bool = False,
                  frontier_threshold: float = 0.25, frontier_block: int = 64,
                  autotune: bool = False,
                  tune_table: "tune_mod.TuneTable | str | None" = None,
                  device: str | torch.device | None = None):
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
+        if cache_plans < 1:
+            raise ValueError(f"cache_plans must be >= 1, got {cache_plans}")
         self.device = resolve_device(device)
         self.block_v = block_v
         self.block_e = block_e
         self.shards = shards
+        self.cache_plans = cache_plans
         self.frontier = frontier
         self.frontier_threshold = frontier_threshold
         self.frontier_block = frontier_block
@@ -348,7 +351,7 @@ class RelaxEngine:
         else:
             self.plan_cache_hits += 1
         self._plans[key] = plan  # (re)insert as most-recently used
-        while len(self._plans) > self.CACHE_PLANS:
+        while len(self._plans) > self.cache_plans:
             self._plans.pop(next(iter(self._plans)))
         self._plan, self._fingerprint = plan, fp
         return plan

@@ -94,6 +94,10 @@ class HighwayLabelling:
     hub: torch.Tensor        # bool[R, V]
     highway: torch.Tensor    # int32[R, R]
 
+    @property
+    def num_landmarks(self) -> int:
+        return self.landmarks.shape[0]
+
     def key2(self) -> torch.Tensor:
         """[R, V] encoded landmark distances d^L_G(r, ·)."""
         return key2_make(self.dist, self.hub)
@@ -108,6 +112,10 @@ class HighwayLabelling:
 
     def label_size(self) -> torch.Tensor:
         return self.label_mask().sum()
+
+    def label_values(self) -> torch.Tensor:
+        """[R, V] label distances, INF_D where no label is stored."""
+        return torch.where(self.label_mask(), self.dist, INF_D)
 
 
 def grow_labelling(lab: HighwayLabelling, new_n: int) -> HighwayLabelling:

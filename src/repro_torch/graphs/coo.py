@@ -74,6 +74,10 @@ class Graph:
     def capacity(self) -> int:
         return self.src.shape[0] // 2
 
+    def num_edges(self) -> torch.Tensor:
+        """Live undirected edges: live slots // 2, a 0-d int64 tensor."""
+        return self.valid.sum() // 2
+
 
 @dataclasses.dataclass(frozen=True)
 class BatchUpdate:

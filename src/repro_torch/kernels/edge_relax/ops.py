@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.labelling import sat_add
+from repro_torch.device import resolve_device
 from repro_torch.kernels.edge_relax import kernel
 
 
@@ -52,6 +53,11 @@ class BlockedGraph:
     chunked: bool           # some destination block spans several tile rows
 
     @property
+    def shards(self) -> int:
+        """Vertex-shard count S of the tiling (leading tile axis)."""
+        return self.src_t.shape[0]
+
+    @property
     def slots(self) -> int:
         """Tile slots S·NR·BE, padding included."""
         return self.src_t.numel()
@@ -63,6 +69,7 @@ def _blocked(src, dst, keep, valid, n, block_v, shards, block_e,
     valid_t. `chunked` is recorded from the pre-shard row count:
     post-shard shapes cannot tell a chunked tiling whose extra rows fill a
     short last shard from an unchunked one."""
+    device = resolve_device(device)
     src_t, dstloc_t, perm_t, slot_t, rowblk, bv = kernel.block_edges_topology(
         src, dst, keep, n, block_v, block_e)
     nb = -(-n // bv)
@@ -83,11 +90,12 @@ def _blocked(src, dst, keep, valid, n, block_v, shards, block_e,
 
 def prepare(src, dst, valid, n: int, block_v: int = 512, shards: int = 1,
             block_e: int | None = None, *,
-            device: str | torch.device) -> BlockedGraph:
+            device: str | torch.device | None = None) -> BlockedGraph:
     """Tile every edge slot and bake `valid` into valid_t (legacy entry).
 
     Free slots are tiled too: they hold src = dst = 0, so they all land in
-    destination block 0, with valid_t 0.
+    destination block 0, with valid_t 0. `device=None` is the GPU, as for
+    every `prepare*` here (see `repro_torch.device`).
     """
     src = np.asarray(src)
     return _blocked(src, np.asarray(dst), np.ones(len(src), bool),
@@ -97,7 +105,8 @@ def prepare(src, dst, valid, n: int, block_v: int = 512, shards: int = 1,
 
 def prepare_topology(src, dst, keep, n: int, block_v: int = 512,
                      shards: int = 1, block_e: int | None = None, *,
-                     device: str | torch.device) -> BlockedGraph:
+                     device: str | torch.device | None = None
+                     ) -> BlockedGraph:
     """Tile the `keep` slots on the host and move the tiles to `device`.
 
     `keep` should be the currently-occupied slots: later deletions only
@@ -108,18 +117,34 @@ def prepare_topology(src, dst, keep, n: int, block_v: int = 512,
                     None, n, block_v, shards, block_e, device)
 
 
+def _as_planes(keys: torch.Tensor, hub: torch.Tensor | None):
+    """(keys, hub) as [P, V] planes, and whether one [V] plane came in:
+    the reference sweeps one plane [V], the port P planes at once."""
+    if keys.dim() != 1:
+        return keys, hub, False
+    return keys[None], None if hub is None else hub[None], True
+
+
 def relax_sweep(keys: torch.Tensor, bg: BlockedGraph,
                 edge_mask: torch.Tensor, step: int, inf: int,
-                w: torch.Tensor, clear_bit: int = 0,
-                hub: torch.Tensor | None = None) -> torch.Tensor:
-    """One wave of all planes `keys` [P, V] over the tiled graph.
+                clear_bit: int = 0, hub: torch.Tensor | None = None,
+                w: torch.Tensor | None = None) -> torch.Tensor:
+    """One wave of the planes `keys` [P, V] over the tiled graph, or of
+    one plane [V] → [V] as in the reference.
 
     `edge_mask` ([E2] or [P, E2]) and the weights `w` ([E2]) are in
-    original slot order; `hub` is a bool plane [P, V] or None.
+    original slot order; `w=None` is the unweighted metric, w ≡ 1 on real
+    slots (the reference's `tile_w(None)`). `hub` is a bool plane of the
+    shape of `keys`, or None.
     """
-    return kernel.relax_sweep(keys, hub, bg.src_t, bg.dstloc_t, bg.perm_t,
-                              bg.slot_t, bg.rowblk_t, edge_mask, w, step, inf,
-                              clear_bit, bg.n, bg.block_v, bg.nb)
+    keys, hub, one = _as_planes(keys, hub)
+    if w is None:
+        w = torch.ones(edge_mask.shape[-1], dtype=torch.int32,
+                       device=keys.device)
+    out = kernel.relax_sweep(keys, hub, bg.src_t, bg.dstloc_t, bg.perm_t,
+                             bg.slot_t, bg.rowblk_t, edge_mask, w, step, inf,
+                             clear_bit, bg.n, bg.block_v, bg.nb)
+    return out[0] if one else out
 
 
 def edge_relax(keys: torch.Tensor, bg: BlockedGraph, step: int
@@ -147,10 +172,11 @@ class SortedGraph:
 
 
 def prepare_sorted(src, dst, keep, n: int, *,
-                   device: str | torch.device) -> SortedGraph:
+                   device: str | torch.device | None = None) -> SortedGraph:
     """Sort the `keep` slots by destination on the host (stable, so equal
     destinations keep slot order) and move them to `device`: once per
     topology, the `sorted` twin of `prepare_topology`."""
+    device = resolve_device(device)
     src = np.asarray(src)
     dst = np.asarray(dst)
     idx = np.flatnonzero(np.asarray(keep, bool))
@@ -163,24 +189,28 @@ def prepare_sorted(src, dst, keep, n: int, *,
 
 def relax_sweep_sorted(keys: torch.Tensor, sg: SortedGraph,
                        edge_mask: torch.Tensor, step: int, inf: int,
-                       w: torch.Tensor, clear_bit: int = 0,
-                       hub: torch.Tensor | None = None) -> torch.Tensor:
-    """The `sorted` impl of `relax_sweep`: the same [P, V] → [P, V] wave
-    over the destination-sorted kept slots, in PyTorch ops.
+                       clear_bit: int = 0, hub: torch.Tensor | None = None,
+                       w: torch.Tensor | None = None) -> torch.Tensor:
+    """The `sorted` impl of `relax_sweep`: the same wave, [P, V] → [P, V]
+    or [V] → [V], over the destination-sorted kept slots, in PyTorch ops.
 
     Gather the sources, add step·w saturating at `inf`, clear the hub bit
     at hub destinations, mask, and take the min by destination; a
     destination no live slot reaches is `inf`. `edge_mask` ([E2] or
-    [P, E2]) and `w` ([E2]) are in original slot order.
+    [P, E2]) and `w` ([E2]) are in original slot order; `w=None` is the
+    unweighted metric.
     """
+    keys, hub, one = _as_planes(keys, hub)
     p = keys.shape[0]
     mask = edge_mask[..., sg.perm_s]
-    cand = sat_add(keys[:, sg.src_s], step * w[sg.perm_s], inf)   # [P, M]
+    sw = step if w is None else step * w[sg.perm_s]
+    cand = sat_add(keys[:, sg.src_s], sw, inf)                      # [P, M]
     if hub is not None:
         cand = torch.where(hub[:, sg.dst_s], cand & ~clear_bit, cand)
     cand = torch.where(mask, cand, inf)
     out = torch.full((p, sg.n), inf, dtype=torch.int32, device=keys.device)
-    return out.scatter_reduce_(1, sg.dst_s.expand(p, -1), cand, "amin")
+    out.scatter_reduce_(1, sg.dst_s.expand(p, -1), cand, "amin")
+    return out[0] if one else out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,13 +270,15 @@ class FrontierTiles:
 
 def prepare_frontier(src, dst, keep, n: int, fblock: int = 64,
                      block_e: int | None = 128, threshold: float = 0.25, *,
-                     device: str | torch.device) -> FrontierTiles:
+                     device: str | torch.device | None = None
+                     ) -> FrontierTiles:
     """Build the change-propagation tiling on the host, once per topology.
 
     `block_e` caps the row width as the kernel tiling's does, so hub
     blocks chunk into several rows. The masked wave runs while the active
     rows number at most rows_cap = max(1, min(NR, ceil(threshold · NR))).
     """
+    device = resolve_device(device)
     src = np.asarray(src)
     dst = np.asarray(dst)
     keep = np.asarray(keep, bool)

@@ -9,8 +9,9 @@ here holds:
 - `memory.argument_bytes` / `output_bytes`: per device, exact arithmetic
   on shapes. Each leaf's dims are divided by the product of the sizes of
   the mesh axes its spec names (`launch.mesh.P`), rounded up, times its
-  item size; no step runs. The outputs' shapes are the cell's
-  `out_shapes`.
+  item size. The outputs' shapes are the cell's `out_shapes`; only for a
+  cell that states none does the step run, once, on the meta
+  `arg_specs`, to give them.
 - `cost.flops`: the matrix-product FLOPs of the whole step (not per
   device), counted by `torch.utils.flop_counter.FlopCounterMode` over
   the step run on meta tensors. The BatchHL steps end their wave loops
@@ -128,6 +129,15 @@ def tree_bytes(shapes, specs, mesh: MeshShape) -> int:
     return sum(tree_bytes(a, s, mesh) for a, s in zip(shapes, specs))
 
 
+def output_bytes(cell: common.Cell, mesh: MeshShape) -> int:
+    """Per-device bytes of the cell's outputs as `out_specs` places
+    them; a cell without `out_shapes` runs its step on meta tensors."""
+    shapes = cell.out_shapes
+    if shapes is None:
+        shapes = cell.step_fn(*cell.arg_specs)
+    return tree_bytes(shapes, cell.out_specs, mesh)
+
+
 def step_flops(cell: common.Cell) -> int:
     """Matrix-product FLOPs of one call of the cell's step on meta
     tensors (the whole program)."""
@@ -142,7 +152,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *,
     t0 = time.perf_counter()
     cell = common.build_cell(arch, shape, pod=multi_pod)
     arg_bytes = tree_bytes(cell.arg_specs, cell.in_specs, mesh)
-    out_bytes = tree_bytes(cell.out_shapes, cell.out_specs, mesh)
+    out_bytes = output_bytes(cell, mesh)
     bytes_s = time.perf_counter() - t0
 
     reasons = dict(NULL_REASONS)

@@ -8,6 +8,8 @@ labelling built by the JAX package is carried into the port with
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import numpy as np
 import pytest
 

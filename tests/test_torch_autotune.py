@@ -12,6 +12,8 @@ the loop's growth alignment. On the CPU the tuner's only candidate is
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import dataclasses
 import filecmp
 import json
@@ -255,11 +257,11 @@ def _port_sweep(cfg, src, dst, keep, mask, w, keys, hub, n, step, clear):
     if cfg.impl == "sorted":
         sg = er_ops.prepare_sorted(src, dst, keep, n, device="cpu")
         return er_ops.relax_sweep_sorted(t(keys), sg, t(mask), step, INF32,
-                                         t(w), clear_bit=clear, hub=hub_t)
+                                         clear_bit=clear, hub=hub_t, w=t(w))
     bg = er_ops.prepare_topology(src, dst, keep, n, cfg.block_v,
                                  cfg.tile_shards, cfg.block_e, device="cpu")
-    return er_ops.relax_sweep(t(keys), bg, t(mask), step, INF32, t(w),
-                              clear_bit=clear, hub=hub_t)
+    return er_ops.relax_sweep(t(keys), bg, t(mask), step, INF32,
+                              clear_bit=clear, hub=hub_t, w=t(w))
 
 
 def _want(src, dst, mask, w, keys, hub, n, step, clear):
@@ -361,7 +363,7 @@ def test_sorted_impl_on_the_engine_path():
     sg = er_ops.prepare_sorted(np.zeros(0), np.zeros(0), np.zeros(0, bool), 5,
                                device="cpu")
     out = er_ops.relax_sweep_sorted(torch.zeros((2, 5), dtype=torch.int32),
-                                    sg, empty.valid, 1, INF32, empty.w)
+                                    sg, empty.valid, 1, INF32, w=empty.w)
     assert torch.equal(out, torch.full((2, 5), INF32, dtype=torch.int32))
 
 
@@ -374,8 +376,8 @@ def test_sorted_impl_sweep_edge_cases(name):
         args = cases.sweep_args(c, "cpu")
         sg = er_ops.prepare_sorted(c.src, c.dst, c.keep, c.n, device="cpu")
         got = er_ops.relax_sweep_sorted(args[0], sg, args[7], c.step, c.inf,
-                                        args[8], clear_bit=c.clear,
-                                        hub=args[1])
+                                        clear_bit=c.clear, hub=args[1],
+                                        w=args[8])
         assert torch.equal(got, kernel.relax_sweep_plain(*args)), c.label
 
 

@@ -12,6 +12,8 @@ them.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import filecmp
 import json
 import os

@@ -14,6 +14,8 @@ the integer kernels, and for the float embedding bag to rtol = atol =
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import dataclasses
 
 import numpy as np
@@ -80,8 +82,8 @@ def test_sorted_impl_equals_kernel(dev, name):
         args = cases.sweep_args(c, dev)
         sg = rops.prepare_sorted(c.src, c.dst, c.keep, c.n, device=dev)
         got = rops.relax_sweep_sorted(args[0], sg, args[7], c.step, c.inf,
-                                      args[8], clear_bit=c.clear,
-                                      hub=args[1])
+                                      clear_bit=c.clear, hub=args[1],
+                                      w=args[8])
         want = rk.relax_sweep(*args)
         torch.cuda.synchronize()
         assert torch.equal(got, want), c.label

@@ -12,6 +12,8 @@ free-slot rule, and the numpy converters.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

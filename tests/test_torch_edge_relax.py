@@ -13,6 +13,8 @@ held to the reference's COO oracle.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,8 @@ reference's own 2e-3 (`tests/test_kernels.py`).
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -33,6 +33,8 @@ float32 rounding, the reason chip_smoke holds GraphCast's gradients at
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import dataclasses
 
 import jax

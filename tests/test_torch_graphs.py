@@ -9,6 +9,8 @@ padding rows — the masked segment-min, and the generator copy.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import numpy as np
 import pytest
 import torch

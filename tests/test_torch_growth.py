@@ -11,6 +11,8 @@ growths.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import dataclasses
 
 import numpy as np

@@ -1,6 +1,8 @@
 """The port stands alone: no JAX, no `repro`, no silent CPU fallback."""
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import os
 import re
 import subprocess
@@ -14,7 +16,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "_sweep_cases.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "_sweep_cases.py",
+    ROOT / "tests" / "_torch_threads.py"]
 
 
 def test_import_leaves_jax_and_repro_out():
@@ -148,6 +151,21 @@ def test_checkpoint_restore_without_device_raises_without_cuda(tmp_path):
         tckpt.restore(str(tmp_path), {"x": torch.zeros(3, dtype=torch.int64)})
 
 
+def test_prepare_without_device_raises_without_cuda():
+    """The four `prepare*` of the edge-relax ops tile onto the GPU
+    unless they are given the CPU."""
+    from repro_torch.kernels.edge_relax import ops
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the GPU")
+    src, dst = np.array([0, 1, 1, 2]), np.array([1, 0, 2, 1])
+    keep = np.ones(4, bool)
+    for prepare in (ops.prepare, ops.prepare_topology, ops.prepare_sorted,
+                    ops.prepare_frontier):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            prepare(src, dst, keep, 3)
+        assert prepare(src, dst, keep, 3, device="cpu") is not None
+
+
 def test_from_arcs_without_device_raises_without_cuda():
     from repro_torch.core.directed import from_arcs
     if torch.cuda.is_available():
@@ -234,10 +252,22 @@ def test_resolve_device_turns_off_bf16_reduced_precision_reduction():
         flags.allow_bf16_reduced_precision_reduction = was
 
 
+_TILES_IN_KERNEL = ("kernel A gathers the mask, the weights and the hub "
+                    "flags through perm_t itself, and the device picks the "
+                    "backend")
+_NO_BACKEND = "the port has no backend switch: the tensor's device is it"
+_PRNG = ("the port cannot reproduce jax's PRNG: it draws from a "
+         "torch.Generator, and the reference's parameters are carried "
+         "across as numpy")
+
 #: Public names of `src/repro` that the port has no counterpart of, by
 #: design, each with its reason. A key is a module path under the
 #: package (every name of that module), `path:NAME`, or "*" and a
-#: suffix (a name with that ending in any module).
+#: suffix (a name with that ending in any module). `path:Class.member`
+#: excuses a missing class member. `path:qual(param)` drops a parameter
+#: from the signature walk on both sides, `path:qual(ref→port)` a
+#: parameter of the reference and the port's parameter in its place, and
+#: `path:qual(positional order)` the order of the positional parameters.
 NAME_ALLOWLIST = {
     # The Pallas launchers and their block constants: the port launches
     # hand-written CUDA kernels through ctypes wrappers instead
@@ -257,6 +287,37 @@ NAME_ALLOWLIST = {
     # impl; the COO path is `relax_sweep(None, ...)`, a plan of None.
     "core/engine.py:BACKENDS": "the device picks kernel or plain twin",
     "core/engine.py:JNP_PLAN": "the port's COO path is plan=None",
+    # Class members.
+    "core/engine.py:RelaxPlan.backend": _TILES_IN_KERNEL,
+    "kernels/edge_relax/ops.py:BlockedGraph.tile_mask": _TILES_IN_KERNEL,
+    "kernels/edge_relax/ops.py:BlockedGraph.tile_w": _TILES_IN_KERNEL,
+    "kernels/edge_relax/ops.py:BlockedGraph.tile_plane": _TILES_IN_KERNEL,
+    "kernels/edge_relax/ops.py:BlockedGraph.tile_plane_rows":
+        _TILES_IN_KERNEL,
+    # Signatures.
+    "core/engine.py:RelaxPlan.__init__(backend)": _NO_BACKEND,
+    "core/engine.py:RelaxPlan.__init__(positional order)":
+        "the reference's second field is `backend`, which the port has "
+        "not, so none of its positional calls carries over",
+    "core/engine.py:RelaxEngine.__init__(backend)": _NO_BACKEND,
+    "core/engine.py:RelaxEngine.__init__(positional order)":
+        "the reference's callers all pass its knobs by keyword; the port "
+        "takes block_v and block_e by position and the rest by keyword",
+    "core/batch.py:frontier_wave(kind)":
+        "its leading `kind` (and its third return value) feed the wave "
+        "counters",
+    "kernels/edge_relax/ops.py:edge_relax(use_pallas)": _NO_BACKEND,
+    "kernels/embed_bag/ops.py:embed_bag(use_pallas)": _NO_BACKEND,
+    "kernels/minplus/ops.py:minplus_bound(use_pallas)": _NO_BACKEND,
+    "graphs/sampler.py:sample_neighbors(key→generator)": _PRNG,
+    "graphs/sampler.py:sample_subgraph(key→generator)": _PRNG,
+    "models/gnn.py:init_params(key)": _PRNG,
+    "models/gnn.py:schnet_init(key→init)": _PRNG,
+    "models/gnn.py:dimenet_init(key→init)": _PRNG,
+    "models/gnn.py:mace_init(key→init)": _PRNG,
+    "models/gnn.py:graphcast_init(key→init)": _PRNG,
+    "models/mind.py:init_params(key)": _PRNG,
+    "models/transformer.py:init_params(key)": _PRNG,
 }
 
 
@@ -304,3 +365,189 @@ def test_every_public_reference_name_has_a_counterpart():
     stale = [k for k in NAME_ALLOWLIST if not k.startswith("*") and not (
         ref / k.split(":")[0]).is_file()]
     assert not stale, f"allowlist names no reference module: {stale}"
+    assert all(isinstance(v, str) and v.strip()
+               for v in NAME_ALLOWLIST.values()), "an entry has no reason"
+
+
+def _classes(tree) -> dict:
+    import ast
+    return {node.name: node for node in tree.body
+            if isinstance(node, ast.ClassDef)}
+
+
+def _is_dataclass(cls) -> bool:
+    import ast
+    return any("dataclass" in ast.unparse(d) for d in cls.decorator_list)
+
+
+def _fields(cls) -> list:
+    """A class's annotated fields (ClassVars left out), in order."""
+    import ast
+    return [node for node in cls.body if isinstance(node, ast.AnnAssign)
+            and isinstance(node.target, ast.Name)
+            and "ClassVar" not in ast.unparse(node.annotation)]
+
+
+def _members(cls) -> set:
+    """Public members defined in a class body: methods, properties,
+    annotated fields and class attributes."""
+    import ast
+    out = {node.target.id for node in _fields(cls)}
+    for node in cls.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return {n for n in out if not n.startswith("_")}
+
+
+def _class_pairs():
+    """(module path, class name, reference ClassDef, port ClassDef) of
+    every class defined at the top level of a module in both packages."""
+    import ast
+    ref, port = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        if not (port / rel).is_file():
+            continue
+        rc = _classes(ast.parse(path.read_text()))
+        pc = _classes(ast.parse((port / rel).read_text()))
+        for name in sorted(set(rc) & set(pc)):
+            yield rel, name, rc[name], pc[name]
+
+
+def test_every_public_reference_member_has_a_counterpart():
+    """Each public member of a class defined in both packages (methods,
+    properties, annotated fields, class attributes) is defined in the
+    port's class too, unless `NAME_ALLOWLIST` says why not; and each
+    member entry there excuses a member that is missing."""
+    missing, used = [], set()
+    for rel, name, rcls, pcls in _class_pairs():
+        for member in sorted(_members(rcls) - _members(pcls)):
+            key = f"{rel}:{name}.{member}"
+            if key in NAME_ALLOWLIST:
+                used.add(key)
+            else:
+                missing.append(key)
+    assert not missing, f"no counterpart in the port: {missing}"
+    member_keys = {k for k in NAME_ALLOWLIST
+                   if "(" not in k and "." in k.partition(":")[2]}
+    assert member_keys == used, \
+        f"allowlist entries that excuse nothing: {sorted(member_keys - used)}"
+
+
+def _signature(fn) -> dict:
+    """name → (kind, has default) of a def's parameters, kind "pos"
+    (positional or keyword), "posonly", "kw", "*" or "**", in order."""
+    a = fn.args
+    pos = a.posonlyargs + a.args
+    first_default = len(pos) - len(a.defaults)
+    sig = {x.arg: ("posonly" if i < len(a.posonlyargs) else "pos",
+                   i >= first_default) for i, x in enumerate(pos)}
+    if a.vararg is not None:
+        sig[a.vararg.arg] = ("*", True)
+    sig.update({x.arg: ("kw", d is not None)
+                for x, d in zip(a.kwonlyargs, a.kw_defaults)})
+    if a.kwarg is not None:
+        sig[a.kwarg.arg] = ("**", True)
+    return sig
+
+
+def _signatures(tree) -> dict:
+    """Qualified name → signature of a module's public functions (and
+    names bound to them, `alias = function`), and of the public methods
+    and `__init__` of its classes; a dataclass without its own
+    `__init__` gets the one its fields make."""
+    import ast
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = _signature(node)
+        elif isinstance(node, ast.Assign) and isinstance(node.value,
+                                                         ast.Name):
+            if node.value.id in out:
+                out.update((t.id, out[node.value.id]) for t in node.targets
+                           if isinstance(t, ast.Name))
+        elif isinstance(node, ast.ClassDef):
+            for m in node.body:
+                if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                        and (m.name == "__init__"
+                             or not m.name.startswith("_")):
+                    out[f"{node.name}.{m.name}"] = _signature(m)
+            if _is_dataclass(node) and f"{node.name}.__init__" not in out:
+                out[f"{node.name}.__init__"] = {"self": ("pos", False)} | {
+                    f.target.id: ("pos", f.value is not None)
+                    for f in _fields(node)}
+    return {k: v for k, v in out.items()
+            if not k.split(".")[0].startswith("_")}
+
+
+def _signature_faults(ref_sig: dict, port_sig: dict, drop_ref: set,
+                      drop_port: set, keep_order: bool) -> list:
+    """How a call written for the reference's signature can fail on the
+    port's: positional names that are not a prefix of the port's, a
+    parameter the port requires that the reference does not, and a
+    reference parameter the port does not take by name."""
+    r = {k: v for k, v in ref_sig.items() if k not in drop_ref}
+    p = {k: v for k, v in port_sig.items() if k not in drop_port}
+    faults = []
+    r_pos = [k for k, (kind, _) in r.items() if kind in ("pos", "posonly")]
+    p_pos = [k for k, (kind, _) in p.items() if kind in ("pos", "posonly")]
+    if keep_order and p_pos[:len(r_pos)] != r_pos:
+        faults.append(f"positional {r_pos} against {p_pos}")
+    faults += [f"requires {k}" for k, (kind, default) in p.items()
+               if not default and (k not in r or r[k][1])]
+    by_name = any(kind == "**" for kind, _ in p.values())
+    faults += [f"no {k}" for k, (kind, _) in r.items()
+               if kind in ("pos", "kw") and not by_name
+               and p.get(k, ("posonly",))[0] not in ("pos", "kw")]
+    if any(kind == "*" for kind, _ in r.values()) and not any(
+            kind == "*" for kind, _ in p.values()):
+        faults.append("no *args")
+    return faults
+
+
+def test_every_reference_signature_binds_in_the_port():
+    """Each public function and method (`__init__` included) defined in
+    both packages takes a call written for the reference's signature:
+    the reference's positional names are a prefix of the port's, the
+    port requires no parameter the reference does not, and it takes
+    every reference parameter by name. Keyword-only extras with defaults
+    (`device`, `engine`, ...) are the port's own. `NAME_ALLOWLIST`
+    excuses parameters and orders, each with its reason; each such entry
+    must excuse something."""
+    import ast
+    drops: dict = {}
+    for key in NAME_ALLOWLIST:
+        if "(" in key:
+            base, _, inner = key[:-1].partition("(")
+            drops.setdefault(base, []).append((key, inner))
+    ref, port = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
+    faults, used = [], set()
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        if not (port / rel).is_file():
+            continue
+        rs = _signatures(ast.parse(path.read_text()))
+        ps = _signatures(ast.parse((port / rel).read_text()))
+        for qual in sorted(set(rs) & set(ps)):
+            drop_ref, drop_port, keep_order = set(), set(), True
+            for key, inner in drops.get(f"{rel}:{qual}", ()):
+                if inner == "positional order":
+                    keep_order = False
+                    if _signature_faults(rs[qual], ps[qual], set(), set(),
+                                         True):
+                        used.add(key)
+                    continue
+                left, _, right = inner.partition("→")
+                drop_ref.add(left)
+                drop_port.add(right or left)
+                if (left in rs[qual] and right in ps[qual]) if right \
+                        else left in rs[qual] | ps[qual]:
+                    used.add(key)
+            faults += [f"{rel}:{qual}: {f}" for f in _signature_faults(
+                rs[qual], ps[qual], drop_ref, drop_port, keep_order)]
+    assert not faults, f"reference calls that fail on the port: {faults}"
+    sig_keys = {k for k in NAME_ALLOWLIST if "(" in k}
+    assert sig_keys == used, \
+        f"allowlist entries that excuse nothing: {sorted(sig_keys - used)}"

@@ -9,6 +9,8 @@ COO reference (`plan=None`) and a tiled plan run on the CPU.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -26,6 +26,8 @@ name), and the port held to the reference:
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import copy
 import importlib
 import json

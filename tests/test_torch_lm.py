@@ -28,6 +28,8 @@ The torch init is checked by its tree and statistics.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import dataclasses
 
 import jax

@@ -27,6 +27,8 @@ DotThunk::Execute: BF16 x BF16 = F32".)
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import dataclasses
 
 import jax

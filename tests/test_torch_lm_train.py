@@ -26,6 +26,8 @@ steps: losses at rtol 2^-7 (a few bfloat16 roundings of a loss near
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import dataclasses
 
 import jax

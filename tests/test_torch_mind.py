@@ -13,6 +13,8 @@ statistics, and `F.cross_entropy` against the literal loss.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import dataclasses
 
 import jax

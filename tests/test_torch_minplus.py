@@ -12,6 +12,8 @@ through both of its paths, at P = R and P < R.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,8 @@ is no witness here.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,8 @@ staleness ≤ 1 across the process boundary.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import filecmp
 import json
 import math

@@ -13,6 +13,8 @@ between the packages, `api.serve` and the CLI.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import dataclasses
 import filecmp
 import json

@@ -13,6 +13,8 @@ for bit: every output is an integer.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 from types import SimpleNamespace
 
 import jax.numpy as jnp

@@ -11,6 +11,8 @@ the shards' flags are stacked and read once.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 from types import SimpleNamespace
 
 import numpy as np

@@ -13,6 +13,8 @@ out-of-place aliases of the reference's donating frontier chunks
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import dataclasses
 
 import numpy as np

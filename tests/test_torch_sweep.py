@@ -14,6 +14,8 @@ too.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -72,9 +74,9 @@ def _jnp_plane(step, inf, clear, g, keys, mask, hub):
 def _port_tiled(bg, keys, mask, w, step, inf, clear, hub):
     return tops.relax_sweep(torch.from_numpy(keys), bg,
                             torch.from_numpy(mask), step, inf,
-                            torch.from_numpy(w), clear_bit=clear,
-                            hub=None if hub is None
-                            else torch.from_numpy(hub)).numpy()
+                            clear_bit=clear,
+                            hub=None if hub is None else torch.from_numpy(hub),
+                            w=torch.from_numpy(w)).numpy()
 
 
 @pytest.mark.parametrize("n,bv,shards,be", [

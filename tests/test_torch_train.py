@@ -8,6 +8,8 @@ order, reductions in another), the int8 codes and the step equal.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import dataclasses
 
 import jax

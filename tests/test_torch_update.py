@@ -9,6 +9,8 @@ two-component deletion, whose `aff` marks the other component's landmark
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

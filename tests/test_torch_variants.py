@@ -9,6 +9,8 @@ the BFS/Dijkstra oracle.
 """
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads per worker)
+
 import numpy as np
 import pytest
 

@@ -84,8 +84,8 @@ def main() -> int:
             slots = tiles.src_s.numel()
 
             def wave(ks, hb, m, sg=tiles):
-                return er_ops.relax_sweep_sorted(ks, sg, m, 2, at.INF32, g.w,
-                                                 clear_bit=1, hub=hb)
+                return er_ops.relax_sweep_sorted(ks, sg, m, 2, at.INF32,
+                                                 clear_bit=1, hub=hb, w=g.w)
         else:
             tiles = er_ops.prepare_topology(src, dst, keep, n, cfg.block_v,
                                             cfg.tile_shards, cfg.block_e,
@@ -95,8 +95,8 @@ def main() -> int:
             slots = tiles.slots
 
             def wave(ks, hb, m, bg=tiles):
-                return er_ops.relax_sweep(ks, bg, m, 2, at.INF32, g.w,
-                                          clear_bit=1, hub=hb)
+                return er_ops.relax_sweep(ks, bg, m, 2, at.INF32,
+                                          clear_bit=1, hub=hb, w=g.w)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
         nbytes = sum(t.numel() * t.element_size() for t in parts)
