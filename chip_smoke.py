@@ -18,7 +18,9 @@
    `tests/_kernel_cases.py`, as `tests/test_torch_cuda.py` runs them; for
    the embedding bag D in {1, 8, 64, 100} × L in {1, 7, 50}, B = 1 and 512
    at L = 50, D = 64 (bags split over warps), two calls bit-equal, and
-   wrapped and NaN indices; and the ValueError of each block_v limit).
+   wrapped and NaN indices). Every call of kernels A and C launches once,
+   their wide modes (block_v past the shared-memory tile) among them: A
+   on the `wide-*` sweep cases, C at block_v 58,113 and 131,072.
 3. Drives the port's main path through `repro_torch.api` at full size:
    Barabási–Albert(2^20, m=4, seed 0), capacity 2^23 edges, 32 landmarks;
    build; one mixed BHL⁺ tick of 512 inserts + 512 deletes; 1024 uniform
@@ -27,7 +29,10 @@
 4. Checks that run: landmark distances after build and after the update
    against scipy BFS, 64 answers against scipy BFS, the update and one
    microbatch rerun on the COO reference (plan=None) equal the kernel
-   path, and both kernels were launched in phase 3.
+   path, and both kernels were launched in phase 3. Then phase 3's
+   update again through `RelaxEngine(block_v=2^20, block_e=4096)`, one
+   destination block (kernel A's wide mode), held bit for bit to phase
+   3's update, its launch count set to 0 just before and read after.
 3b. Runs the same tick again in the frontier mode (`RelaxEngine(
    frontier=True)`, threshold 0.25, frontier blocks of 64) through
    `api.update`, holds it bit for bit to phase 3's update, and reports
@@ -65,7 +70,11 @@
    record each hand-written kernel as often as its wrapper launched it
    (and kernel A's transpose, fill and pack once per launch); a pass that
    lost records is logged and run again, and three such passes in a row
-   fail the phase.
+   fail the phase. The wide modes: kernel A's key2 wave at block_v
+   28,033, 65,536 and 2^20 (block_e 4096; the tiled 512 is the row
+   above) and kernel C at block_v 58,113 and 2^20, each by CUDA events
+   in turns with its plain version, beside its needed-bytes bound, equal
+   to its plain version and to the block_v 512 result.
 6. The serving path at full width (`repro_torch.launch.serve`, the
    production config: BA(2^20, 4), 32 landmarks, batches of 1024, query
    microbatches of 32, 256 queries a tick at 2000 per second). First
@@ -234,9 +243,10 @@
    (`launch/dryrun.py`): its bytes pass over every cell of the 10 archs
    and batchhl on both production meshes (90 records, 0 failures), and
    its FLOPs pass on meta tensors for one cell per family.
-15. Prints a `summary:` line with every number above as JSON, the
-   `{"kernels": [...]}` line (kernel A's and B's launches are run A's),
-   the card line, and last `{"ok": true, "device": {...}}`.
+15. Prints a `summary:` line with every number above as JSON (each
+   phase's wall seconds under `phase_s`, also logged as each phase
+   ends), the `{"kernels": [...]}` line (kernel A's and B's launches are
+   run A's), the card line, and last `{"ok": true, "device": {...}}`.
 
 Exits nonzero, printing no result, without a CUDA device or if any phase
 fails. Imports nothing of JAX or of the JAX package `repro`.
@@ -289,6 +299,20 @@ NONTENSOR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class PhaseClock:
+    """Wall seconds of each phase, from the end of the one before."""
+
+    def __init__(self) -> None:
+        self.t = time.perf_counter()
+        self.s: dict = {}
+
+    def done(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.s[phase] = now - self.t
+        self.t = now
+        log(f"phase {phase} wall: {self.s[phase]:.1f} s")
 
 
 def card_line() -> str:
@@ -401,10 +425,13 @@ def device_kernels(torch, fn, parts: tuple = ()) -> tuple[dict, float,
 
 
 def sweep_parts(per: dict) -> dict:
-    """Kernel A's device ms by its kernels (transpose, pack, fill, sweep)."""
+    """Kernel A's device ms by its kernels (transpose, pack, fill, sweep;
+    the wide mode's fill is `fill_inf_kernel`, its hub pack one more
+    `pack_mask_kernel`)."""
     out = {}
     for part in ("transpose_kernel", "pack_mask_kernel",
-                 "fill_chunked_kernel", "relax_sweep_kernel"):
+                 "fill_chunked_kernel", "fill_inf_kernel",
+                 "relax_sweep_kernel"):
         out[part] = sum(v[0] for k, v in per.items() if part in k)
     return out
 
@@ -525,12 +552,17 @@ def check_kernels_small(torch, np, dev) -> int:
     from repro_torch.kernels.edge_relax import ops as rops
     from repro_torch.kernels.minplus import kernel as mk
 
-    cases = 0
+    cases = wide = 0
     for name in sweep_cases.names():
         for c in sweep_cases.make(name):
             args = sweep_cases.sweep_args(c, dev)
+            before = rk.launches
             got = rk.relax_sweep(*args)
             torch.cuda.synchronize()
+            if rk.launches != before + 1:
+                raise AssertionError(f"relax_sweep launched "
+                                     f"{rk.launches - before} kernels: "
+                                     f"{name} {c.label}")
             want = rk.relax_sweep_plain(*args)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
@@ -547,18 +579,13 @@ def check_kernels_small(torch, np, dev) -> int:
                 raise AssertionError(f"sorted impl != relax_sweep: {name} "
                                      f"{c.label}")
             cases += 1
-    # One block_v past the shared-memory limit raises, the limit named.
-    limit = rk.SWEEP_MAX_BLOCK_V
-    c = dataclasses.replace(sweep_cases.make("near-inf")[0],
-                            block_v=limit + 1)
-    try:
-        rk.relax_sweep(*sweep_cases.sweep_args(c, dev))
-    except ValueError as err:
-        if f"block_v <= {limit}" not in str(err):
-            raise
-    else:
-        raise AssertionError(f"relax_sweep took block_v={limit + 1}")
-    cases += 1 + check_reference_form(torch, np, dev)
+            wide += rk.sweep_mode(c.block_v) == "wide"
+    if wide == 0:
+        raise AssertionError("no sweep case ran kernel A's wide mode")
+    log(f"phase 2: kernel A's wide mode (block_v > {rk.SWEEP_MAX_BLOCK_V}) "
+        f"on {wide} sweeps of the wide-* cases, each one launch and equal "
+        f"to the plain version")
+    cases += check_reference_form(torch, np, dev)
 
     # Min-plus over every case of tests/_kernel_cases.py.
     for name in kernel_cases.minplus_names():
@@ -627,18 +654,23 @@ def check_reference_form(torch, np, dev) -> int:
 
 def check_edge_relax_small(torch, dev) -> int:
     """Kernel C against its plain version and the COO oracle, bit for bit,
-    over every case of tests/_kernel_cases.py; one block_v past its limit
-    raises."""
+    one launch a call, over every case of tests/_kernel_cases.py (its
+    wide mode at block_v 58,113 and 131,072 among them)."""
     import _kernel_cases as kernel_cases
     from repro_torch.kernels.edge_relax import kernel as rk
     from repro_torch.kernels.edge_relax import ref as rref
-    cases = 0
+    cases = wide = 0
     for name in kernel_cases.edge_relax_names():
         for c in kernel_cases.edge_relax_case(name):
             for step in kernel_cases.STEPS:
                 args = kernel_cases.edge_relax_args(c, step, dev)
+                before = rk.launches_edge_relax
                 got = rk.edge_relax(*args)
                 torch.cuda.synchronize()
+                if rk.launches_edge_relax != before + 1:
+                    raise AssertionError(f"edge_relax launched "
+                                         f"{rk.launches_edge_relax - before}"
+                                         f" kernels: {name} {c.label}")
                 coo = rref.edge_relax(*(torch.from_numpy(x).to(dev) for x in
                                         (c.keys, c.src, c.dst, c.valid)),
                                       step, c.n)
@@ -647,17 +679,13 @@ def check_edge_relax_small(torch, dev) -> int:
                     raise AssertionError(f"edge_relax != plain / COO: {name}"
                                          f" {c.label} step={step}")
                 cases += 1
-    limit = rk.EDGE_RELAX_MAX_BLOCK_V
-    c = dataclasses.replace(kernel_cases.edge_relax_case("near-inf")[0],
-                            block_v=limit + 1)
-    try:
-        rk.edge_relax(*kernel_cases.edge_relax_args(c, 1, dev))
-    except ValueError as err:
-        if f"block_v <= {limit}" not in str(err):
-            raise
-    else:
-        raise AssertionError(f"edge_relax took block_v={limit + 1}")
-    return cases + 1
+                wide += rk.edge_relax_mode(c.block_v) == "wide"
+    if wide == 0:
+        raise AssertionError("no edge_relax case ran kernel C's wide mode")
+    log(f"phase 2: kernel C's wide mode (block_v > "
+        f"{rk.EDGE_RELAX_MAX_BLOCK_V}) on {wide} calls, each one launch and "
+        f"equal to the plain version and the COO oracle")
+    return cases
 
 
 def check_embed_bag_small(torch, np, dev, rng) -> int:
@@ -870,11 +898,109 @@ def run_frontier_update(torch, dev, g0, lab0, batch, full, trickle) -> dict:
     return out, fr
 
 
+# --- phase 5: kernel A's bound and tilings, kernels C and D ----------------------
+
+def sweep_bound(bg, keys, hub, mask, e2: int) -> dict:
+    """What one sweep of `keys` over tiling `bg` needs, and its bound:
+    keys in and out, hub and rowblk once each; the four index streams of
+    each live tile slot and only slot_t of each padding slot; the mask of
+    each live slot's edge and w of each edge a plane lets through. Beside
+    it the bound of every padded tile slot's indices and of w and mask of
+    every slot."""
+    p, n = keys.shape
+    live_slot = bg.slot_t.reshape(-1) != 0
+    live_slots = int(live_slot.sum())
+    perm_live = bg.perm_t.reshape(-1)[live_slot].long()
+    del live_slot
+    # The mask at each live tile slot's edge; the (plane, slot) pairs it
+    # lets through, and the slots some plane lets through.
+    m_live = mask[..., perm_live]
+    plane_edges = int(m_live.sum()) * (p if mask.dim() == 1 else 1)
+    used = int((m_live if mask.dim() == 1 else m_live.any(0)).sum())
+    del m_live, perm_live
+    keys_hub = (p * n * 4 * 2 + (p * n if hub is not None else 0)
+                + bg.rowblk_t.numel() * 4)
+    nbytes = (keys_hub + live_slots * 16 + (bg.slots - live_slots) * 4
+              + live_slots * (p if mask.dim() == 2 else 1) + used * 4)
+    ops = 4 * plane_edges   # add, saturate, hub clear, min per pair
+    bms, by = bound_ms(nbytes, ops)
+    padded_bytes = keys_hub + bg.slots * 16 + mask.numel() + e2 * 4
+    padded_ms, _ = bound_ms(padded_bytes, ops)
+    return dict(bound_ms=bms, bound_by=by, bytes=nbytes,
+                padded_bound_ms=padded_ms, padded_bytes=padded_bytes,
+                live_slots=live_slots, live_plane_edges=plane_edges)
+
+
+#: Kernel A's tilings beyond the main path's block_v 512 that phase 5
+#: times (all past SWEEP_MAX_BLOCK_V, so in the wide mode), at block_e
+#: api.BLOCK_E; 2^20 is one destination block.
+SWEEP_TILINGS = (28_033, 65_536, 1 << 20)
+#: Kernel C's, past EDGE_RELAX_MAX_BLOCK_V.
+EDGE_RELAX_TILINGS = (58_113, 1 << 20)
+
+
+def time_sweep_tilings(torch, dev, g1, keys, hub, one_block, want) -> list:
+    """Kernel A's key2 wave (keys [32, 2^20], the landmarks' hub, the
+    live edges) at each block_v of SWEEP_TILINGS, tiled by a new engine
+    (by `one_block`, phase 3's, at its block_v): one launch, equal to its
+    plain version and to `want` (the block_v 512 result); CUDA events in
+    turns with the plain version beside the needed-bytes bound, and the
+    device ms of its kernels from one profiler pass over three calls."""
+    from repro_torch import api
+    from repro_torch.core.engine import RelaxEngine
+    from repro_torch.core.labelling import INF_KEY2
+    from repro_torch.kernels.edge_relax import kernel as rk
+    rows = []
+    for block_v in SWEEP_TILINGS:
+        eng = one_block if block_v == one_block.block_v else RelaxEngine(
+            block_v=block_v, block_e=api.BLOCK_E, device=dev)
+        t0 = time.perf_counter()
+        bg = eng.prepare(g1).tiles
+        prep_s = time.perf_counter() - t0
+        args = (keys, hub, bg.src_t, bg.dstloc_t, bg.perm_t, bg.slot_t,
+                bg.rowblk_t, g1.valid, g1.w, 2, INF_KEY2, 1, N, bg.block_v,
+                bg.nb)
+        reset_launches()
+        got = rk.relax_sweep(*args)
+        torch.cuda.synchronize()
+        launches = read_launches()["relax_sweep"]
+        plain = rk.relax_sweep_plain(*args)
+        if launches != 1 or not torch.equal(got, plain) \
+                or not torch.equal(got, want):
+            raise AssertionError(
+                f"relax_sweep at block_v={block_v}: {launches} launches, "
+                f"{int((got != plain).sum())} entries != plain, "
+                f"{int((got != want).sum())} != block_v {api.BLOCK_V}")
+        del got, plain
+        ms, plain_ms = paired_ms(lambda: rk.relax_sweep(*args),
+                                 lambda: rk.relax_sweep_plain(*args), 10, 3)
+        per = device_kernels(torch, lambda: [rk.relax_sweep(*args)
+                                             for _ in range(3)])[0]
+        parts = {k: v / 3 for k, v in sweep_parts(per).items()}
+        mode = rk.sweep_mode(block_v)
+        row = dict(block_v=block_v, block_e=api.BLOCK_E, mode=mode,
+                   group=rk.plane_group(keys.shape[0], block_v),
+                   rows=bg.rowblk_t.numel(), slots=bg.slots,
+                   prepare_s=prep_s, launches=launches, max_abs_err=0,
+                   ms=ms, plain_ms=plain_ms, device_ms=parts,
+                   **sweep_bound(bg, keys, hub, g1.valid, g1.src.shape[0]))
+        rows.append(row)
+        log(f"relax_sweep key2 wave at block_v={block_v} ({mode} mode, "
+            f"group {row['group']}, block_e={api.BLOCK_E}): {row['rows']} "
+            f"rows, {bg.slots} slots, host prepare {prep_s:.3f} s; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); == plain and =="
+            f" block_v {api.BLOCK_V}; device ms of one call {parts}")
+        del bg, args
+    return rows
+
+
 # --- phase 5: kernels C and D on their own paths --------------------------------
 
-def time_edge_relax(torch, dev, g1, lab1) -> dict:
+def time_edge_relax(torch, dev, g1, lab1, block_v: int) -> dict:
     """Kernel C through `ops.prepare` / `ops.edge_relax` on the
-    post-update graph, one plane, step 1."""
+    post-update graph, one plane, step 1, at `block_v` (block_e
+    api.BLOCK_E)."""
     from repro_torch import api
     from repro_torch.kernels.edge_relax import kernel as rk
     from repro_torch.kernels.edge_relax import ops as rops
@@ -882,7 +1008,7 @@ def time_edge_relax(torch, dev, g1, lab1) -> dict:
 
     t0 = time.perf_counter()
     bg = rops.prepare(g1.src.cpu().numpy(), g1.dst.cpu().numpy(),
-                      g1.valid.cpu().numpy(), g1.n, api.BLOCK_V, 1,
+                      g1.valid.cpu().numpy(), g1.n, block_v, 1,
                       api.BLOCK_E, device=dev)
     prep_s = time.perf_counter() - t0
     keys = lab1.dist[0].contiguous()
@@ -902,20 +1028,22 @@ def time_edge_relax(torch, dev, g1, lab1) -> dict:
         raise AssertionError("edge_relax at full size != plain / COO oracle")
     ms, plain = paired_ms(lambda: rk.edge_relax(*args),
                           lambda: rk.edge_relax_plain(*args), 10, 3)
+    mode = rk.edge_relax_mode(block_v)
+    fill = "fill_chunked_kernel" if mode == "tiled" else "fill_inf_kernel"
     parts = {k: profiled_us(torch, lambda: rk.edge_relax(*args), k, 10) / 1e3
-             for k in ("fill_chunked_kernel", "edge_relax_kernel")}
+             for k in (fill, "edge_relax_kernel")}
     rows = bg.rowblk_t.numel()
     live = int((bg.valid_t != 0).sum())
     # What this run's data needs: valid_t of every slot, src and local dst
     # of the valid ones, rowblk, keys once and out once.
     nbytes = bg.slots * 4 + live * 8 + rows * 4 + 2 * g1.n * 4
     bms, by = bound_ms(nbytes, 3 * live)   # add, saturate, min per slot
-    row = dict(rows=rows, slots=bg.slots, valid_slots=live,
-               prepare_s=prep_s, launches=launches, max_abs_err=err, ms=ms,
-               plain_ms=plain, bound_ms=bms, bound_by=by, bytes=nbytes,
-               device_ms=parts)
-    log(f"edge_relax (ops.prepare of every slot, block_v={api.BLOCK_V} "
-        f"block_e={api.BLOCK_E}): {rows} rows, {bg.slots} slots "
+    row = dict(block_v=block_v, mode=mode, rows=rows, slots=bg.slots,
+               valid_slots=live, prepare_s=prep_s, launches=launches,
+               max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+               bound_by=by, bytes=nbytes, device_ms=parts)
+    log(f"edge_relax (ops.prepare of every slot, block_v={block_v}, {mode} "
+        f"mode, block_e={api.BLOCK_E}): {rows} rows, {bg.slots} slots "
         f"({live} valid), host prepare {prep_s:.3f} s; kernel {ms:.3f} ms, "
         f"plain {plain:.3f} ms, bound {bms:.4f} ms ({by}), max_abs_err {err}"
         f"; == COO oracle; device ms of one call {parts}")
@@ -3508,6 +3636,7 @@ def main() -> int:
     from repro_torch.kernels.minplus import kernel as mk
 
     dev = torch.device(DEVICE)
+    clock = PhaseClock()
     memoise_ba()
     card = card_line()
     log(f"card: {card}")
@@ -3522,11 +3651,13 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    clock.done("1")
 
     # --- 2. kernels against plain versions -----------------------------------
     cases = check_kernels_small(torch, np, dev)
     log(f"phase 2: {cases} kernel cases equal their plain versions (and "
         "the sorted impl equals kernel A on every relax-sweep case)")
+    clock.done("2")
 
     # --- 11. MIND and the training substrate (first, on the empty card) ------
     reset_launches()
@@ -3535,6 +3666,7 @@ def main() -> int:
     if any(mind_row["launches"].values()):
         raise AssertionError(f"phase 11: MIND launched a hand-written "
                              f"kernel: {mind_row['launches']}")
+    clock.done("11")
 
     # --- 12a/b. the GNN family (next, while the card is empty) ---------------
     reset_launches()
@@ -3543,6 +3675,7 @@ def main() -> int:
     if any(gnn_row["launches"].values()):
         raise AssertionError(f"phase 12a/b: a GNN launched a hand-written "
                              f"kernel: {gnn_row['launches']}")
+    clock.done("12a/b")
 
     # --- 13. the transformer LMs (next, while the card is empty) -------------
     reset_launches()
@@ -3551,6 +3684,7 @@ def main() -> int:
     if any(lm_row["launches"].values()):
         raise AssertionError(f"phase 13: an LM launched a hand-written "
                              f"kernel: {lm_row['launches']}")
+    clock.done("13")
 
     # --- 3. the main path ------------------------------------------------------
     t0 = time.perf_counter()
@@ -3653,10 +3787,31 @@ def main() -> int:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     log(f"phase 4d: launches on the main path {launches}")
+    clock.done("3/4")
+
+    # --- 3. the same update through one destination block (wide mode) -------
+    wide_eng = teng.RelaxEngine(block_v=N, block_e=api.BLOCK_E, device=dev)
+    wide_out, wide_s, wide_waves, wide_launches = timed_update(
+        torch, wide_eng, g0, lab0, batch)
+    assert_same_update(torch, wide_out, (g1, lab1, aff1),
+                       f"update at block_v={N}")
+    if wide_launches["relax_sweep"] <= 0:
+        raise AssertionError(f"update at block_v={N} launched no kernel A: "
+                             f"{wide_launches}")
+    one_block = dict(block_v=N, block_e=api.BLOCK_E,
+                     mode=rk.sweep_mode(N), update_s=wide_s,
+                     waves=wide_waves, launches=wide_launches)
+    del wide_out
+    log(f"phase 3 at block_v={N} (one destination block, "
+        f"{one_block['mode']} mode, block_e={api.BLOCK_E}): update "
+        f"{wide_s:.3f} s, waves {wide_waves}, launches {wide_launches}; "
+        f"== phase 3's update on slots, labelling and aff")
+    clock.done("3 one-block")
 
     # --- 14. the BatchHL cells on phase 3's graph, and the dry run ----------
     bhl_row = run_batchhl_cells(torch, np, dev, card, edges, g0, lab0, batch,
                                 (g1, lab1, aff1), answers, qs, qt)
+    clock.done("14")
 
     # --- 12c. the neighbour sampler on phase 3's graph -----------------------
     reset_launches()
@@ -3665,6 +3820,7 @@ def main() -> int:
     if any(sampler_row["launches"].values()):
         raise AssertionError(f"phase 12c: the sampler launched a hand-written"
                              f" kernel: {sampler_row['launches']}")
+    clock.done("12c")
 
     # --- 3b. the same tick in the frontier mode ------------------------------
     trickle = coo.make_batch(gen.random_batch_updates(
@@ -3672,6 +3828,7 @@ def main() -> int:
         device=dev)
     frontier, fr_engine = run_frontier_update(torch, dev, g0, lab0, batch,
                                               (g1, lab1, aff1), trickle)
+    clock.done("3b")
 
     # --- 5. timings at the main path's shapes -----------------------------------
     eng = teng.RelaxEngine(block_v=api.BLOCK_V, block_e=api.BLOCK_E,
@@ -3713,11 +3870,7 @@ def main() -> int:
               hub_mask, bou_mask, 2, INF_KEY2, 1),
              ("repair interior, per-plane int_mask (2, INF_KEY2, 1)", key2,
               hub_mask, int_mask, 2, INF_KEY2, 1)]
-    live_slot = bg.slot_t.reshape(-1) != 0
-    live_slots = int(live_slot.sum())
-    perm_live = bg.perm_t.reshape(-1)[live_slot].long()
-    del live_slot
-    sweep_rows = []
+    sweep_rows, key2_out = [], None
     for name, keys, hub, mask, step, inf, clear in waves:
         keys = keys.contiguous()
         args = (keys, hub, bg.src_t, bg.dstloc_t, bg.perm_t, bg.slot_t,
@@ -3729,43 +3882,28 @@ def main() -> int:
         err = int((got.long() - want.long()).abs().max())
         if err != 0:
             raise AssertionError(f"relax_sweep != plain at full size: {name}")
+        if name.startswith("construct/repair"):
+            key2_out = got    # the key2 wave, for SWEEP_TILINGS
         ms, plain = paired_ms(lambda: rk.relax_sweep(*args),
                               lambda: rk.relax_sweep_plain(*args), 10, 3)
         parts = sweep_split(torch, lambda: rk.relax_sweep(*args),
                             mask.dim() == 2)
         p = keys.shape[0]
-        # The mask at each live tile slot's edge; the (plane, slot) pairs
-        # it lets through, and the slots some plane lets through.
-        m_live = mask[..., perm_live]
-        plane_edges = int(m_live.sum()) * (p if mask.dim() == 1 else 1)
-        used = int((m_live if mask.dim() == 1 else m_live.any(0)).sum())
-        del m_live
-        # Needed bytes: keys in and out, hub and rowblk once each; the four
-        # index streams of each live tile slot and only slot_t of each
-        # padding slot; the mask of each live slot's edge and w of each
-        # edge a plane lets through.
-        keys_hub = (p * N * 4 * 2 + (p * N if hub is not None else 0)
-                    + bg.rowblk_t.numel() * 4)
-        nbytes = (keys_hub + live_slots * 16 + (bg.slots - live_slots) * 4
-                  + live_slots * (p if mask.dim() == 2 else 1) + used * 4)
-        ops = 4 * plane_edges   # add, saturate, hub clear, min per pair
-        bms, by = bound_ms(nbytes, ops)
-        # Every padded tile slot's indices, and w and mask of every slot.
-        padded_bytes = keys_hub + bg.slots * 16 + mask.numel() + e2 * 4
-        padded_ms, _ = bound_ms(padded_bytes, ops)
-        sweep_rows.append(dict(wave=name, ms=ms, plain_ms=plain, bound_ms=bms,
-                               bound_by=by, bytes=nbytes,
-                               padded_bound_ms=padded_ms,
-                               padded_bytes=padded_bytes,
-                               max_abs_err=err, planes=p,
-                               live_plane_edges=plane_edges,
-                               device_ms=parts))
+        b = sweep_bound(bg, keys, hub, mask, e2)
+        sweep_rows.append(dict(wave=name, ms=ms, plain_ms=plain,
+                               max_abs_err=err, planes=p, device_ms=parts,
+                               **b))
         log(f"relax_sweep {name}: [{p}, {N}] keys, {bg.slots} slots "
-            f"({live_slots} live): kernel {ms:.3f} ms, plain {plain:.3f} ms,"
-            f" bound {bms:.4f} ms ({by}, {nbytes} needed bytes), padded-tile "
-            f"bound {padded_ms:.4f} ms ({padded_bytes} bytes), max_abs_err "
-            f"{err}; device ms of one call {parts}")
-    del bou_mask, int_mask, perm_live
+            f"({b['live_slots']} live): kernel {ms:.3f} ms, plain "
+            f"{plain:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+            f"{b['bytes']} needed bytes), padded-tile bound "
+            f"{b['padded_bound_ms']:.4f} ms ({b['padded_bytes']} bytes), "
+            f"max_abs_err {err}; device ms of one call {parts}")
+    del bou_mask, int_mask
+    # Kernel A's key2 wave at the wide tilings, held to the one above.
+    sweep_tilings = time_sweep_tilings(torch, dev, g1, key2.contiguous(),
+                                       hub_mask, wide_eng, key2_out)
+    del key2_out, wide_eng
 
     # One query microbatch under the profiler: how busy the card is, and
     # what its plan-cache hit (the default engine's prepare of g1) costs.
@@ -3809,12 +3947,16 @@ def main() -> int:
             f"{floor_us:.2f} us), plain {plain:.4f} ms ({plain_us:.2f} "
             f"device us), bound {bms:.6f} ms ({by}), max_abs_err {err}")
 
-    er_row = time_edge_relax(torch, dev, g1, lab1)
+    er_row = time_edge_relax(torch, dev, g1, lab1, api.BLOCK_V)
+    er_tilings = [time_edge_relax(torch, dev, g1, lab1, bv)
+                  for bv in EDGE_RELAX_TILINGS]
     bag_rows = time_embed_bag(torch, dev, floor_us)
+    clock.done("5")
 
     # --- 6. the serving loop at full width ------------------------------------
     serve, serve_base, final_a = run_serve(
         torch, np, dev, g0, lab0, batch, (g1, lab1, aff1), trickle, fr_engine)
+    clock.done("6")
 
     # --- 10. the sharded path on meshes of the one card ---------------------
     # (before phase 7 frees phase 3's state; run A's steps are still on
@@ -3822,14 +3964,17 @@ def main() -> int:
     sharded = run_sharded(torch, np, dev, card, g0, lab0, batch,
                           (g1, lab1, aff1), answers, qs, qt, fr_engine,
                           serve_base)
+    clock.done("10")
 
     # --- 7. directed BatchHL at full width -----------------------------------
     del g1, lab1, aff1, fr_engine, trickle, lab_eff, key2, hub_mask, ds
     directed = run_directed(torch, np, dev, edges)
+    clock.done("7")
 
     # --- 8. the autotuner at full width ---------------------------------------
     autotune = run_autotune(torch, dev, serve_base, final_a)
     del final_a
+    clock.done("8")
 
     # --- 9. the replica tier at full width --------------------------------------
     try:
@@ -3837,6 +3982,7 @@ def main() -> int:
     except BaseException:
         dump_role_logs(REPLICA_DIR / "logs")
         raise
+    clock.done("9")
 
     # --- 15. the kernels line and the summary --------------------------------
     key2_row = sweep_rows[2]
@@ -3883,14 +4029,15 @@ def main() -> int:
                    bibfs_waves=bibfs_waves, peak_gb=peak_gb,
                    tile_rows=nr, tile_slots=bg.slots,
                    unchunked_slots=unchunked, prepare_s=prep_s,
-                   relax_sweep=sweep_rows, query_profile=q_prof,
-                   minplus=mp_rows,
-                   frontier=frontier, edge_relax=er_row, embed_bag=bag_rows,
+                   relax_sweep=sweep_rows, relax_sweep_tilings=sweep_tilings,
+                   one_block_update=one_block, query_profile=q_prof,
+                   minplus=mp_rows, frontier=frontier, edge_relax=er_row,
+                   edge_relax_tilings=er_tilings, embed_bag=bag_rows,
                    serve=serve, directed=directed, autotune=autotune,
                    replica=replica_tier, sharded=sharded, mind=mind_row,
                    gnn=gnn_row, sampler=sampler_row, lm=lm_row,
                    batchhl_cells=bhl_row,
-                   profiler_short_passes=short_passes,
+                   profiler_short_passes=short_passes, phase_s=clock.s,
                    total_s=time.perf_counter() - t_start)
     log(f"total: {summary['total_s']:.1f} s")
     log("summary: " + json.dumps(summary))

@@ -25,20 +25,28 @@
 // atomicMin'ed every tile into it.
 //
 // This design:
-// - One CTA per tile row of the flattened [S * NR] rows, its [block_v]
-//   tile of running mins in dynamic shared memory (opted in with
-//   cudaFuncSetAttribute, so block_v may reach 232,448 / 4 = 58,112).
+// - One CTA per tile row of the flattened [S * NR] rows, in one of two
+//   modes that the wrapper picks from block_v (kernel.py:
+//   edge_relax_mode). Tiled mode (block_v <= 232,448 / 4 = 58,112, the
+//   dynamic shared memory a CTA may opt in to with cudaFuncSetAttribute):
+//   the CTA keeps its block's [block_v] tile of running mins there. Wide
+//   mode (any wider block_v): no tile; fill_inf_kernel fills all of `out`
+//   with INF32 over the whole grid, and each candidate below INF32 is
+//   atomicMin'ed straight into `out` in device memory. A saturated
+//   candidate and a missing one both read INF32, so skipping the former
+//   changes nothing.
 // - Each thread takes kQuads quads of 4 slots per step: where BE % 4 == 0
 //   one 16-byte load of valid_t each, and 16-byte loads of src_t and
 //   dstloc_t only for quads with a valid slot (padding comes in whole
 //   quads at the row's end); other BE take the same slots with 4-byte
 //   loads. All loads and key gathers of the step are issued before the
 //   first shared atomicMin.
-// - The fold of a block's rows, as kernel A does it: a block with one
-//   tile row stores its tile plainly, INF32 included, so `out` needs no
-//   fill; the rows of a block chunked over several rows atomicMin into a
-//   region that fill_chunked_kernel filled with INF32 first. min does not
-//   depend on order, so the result is deterministic.
+// - The fold of a block's rows in the tiled mode, as kernel A does it: a
+//   block with one tile row stores its tile plainly, INF32 included, so
+//   `out` needs no fill; the rows of a block chunked over several rows
+//   atomicMin into a region that fill_chunked_kernel filled with INF32
+//   first. min does not depend on order, so the result is deterministic
+//   in both modes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,6 +91,13 @@ __global__ void fill_chunked_kernel(int* __restrict__ out,
   }
 }
 
+// Wide mode: fill all n entries of `out` with INF32, grid-stride.
+__global__ void fill_inf_kernel(int* __restrict__ out, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    out[i] = kInf32;
+}
+
 // Slots of quad step e0 that this thread takes: with kVec the four
 // consecutive slots e0 + 4 * tid + k (one 16-byte load), else the four
 // slots e0 + k * kThreads + tid. Slots past `be` read as 0.
@@ -106,7 +121,9 @@ __device__ __forceinline__ int lane_of(const int4& q, int k) {
   return k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
 }
 
-template <bool kVec>
+// kWide: the wide mode, which folds into `out` (filled with INF32 first)
+// in place of the shared tile.
+template <bool kVec, bool kWide>
 __global__ void __launch_bounds__(kThreads) edge_relax_kernel(
     const int* __restrict__ keys, const int* __restrict__ src_t,
     const int* __restrict__ dstloc_t, const int* __restrict__ valid_t,
@@ -116,8 +133,10 @@ __global__ void __launch_bounds__(kThreads) edge_relax_kernel(
   const long long row = blockIdx.x;  // in [0, S * NR)
   const RowInfo r = row_info(rowblk_t, row, rows_per_shard, nb, block_v);
 
-  for (int i = threadIdx.x; i < block_v; i += kThreads) tile[i] = kInf32;
-  __syncthreads();
+  if constexpr (!kWide) {
+    for (int i = threadIdx.x; i < block_v; i += kThreads) tile[i] = kInf32;
+    __syncthreads();
+  }
 
   const long long off = row * be;
   const int* v_row = valid_t + off;
@@ -152,66 +171,97 @@ __global__ void __launch_bounds__(kThreads) edge_relax_kernel(
             static_cast<uint32_t>(static_cast<uint64_t>(sum)));
         const int cand =
             (wrapped < 0 || wrapped > kInf32) ? kInf32 : wrapped;
-        atomicMin(&tile[lane_of(dq[q], k)], cand);
+        if constexpr (kWide) {
+          if (cand < kInf32)
+            atomicMin(&out[r.base + lane_of(dq[q], k)], cand);
+        } else {
+          atomicMin(&tile[lane_of(dq[q], k)], cand);
+        }
       }
   }
-  __syncthreads();
+  if constexpr (!kWide) {
+    __syncthreads();
 
-  for (int i = threadIdx.x; i < block_v; i += kThreads) {
-    const long long v = r.base + i;
-    if (v >= n) break;
-    if (!r.chunked)
-      out[v] = tile[i];
-    else if (tile[i] < kInf32)
-      atomicMin(&out[v], tile[i]);
+    for (int i = threadIdx.x; i < block_v; i += kThreads) {
+      const long long v = r.base + i;
+      if (v >= n) break;
+      if (!r.chunked)
+        out[v] = tile[i];
+      else if (tile[i] < kInf32)
+        atomicMin(&out[v], tile[i]);
+    }
   }
 }
 
-template <bool kVec>
+template <bool kVec, bool kWide>
 int launch_sweep(const int* keys, const int* src_t, const int* dstloc_t,
                  const int* valid_t, const int* rowblk_t, int* out, int n,
                  int rows, int rows_per_shard, int be, int block_v, int nb,
                  int step, cudaStream_t s) {
-  const int smem = block_v * static_cast<int>(sizeof(int));
+  const int smem = kWide ? 0 : block_v * static_cast<int>(sizeof(int));
   if (cudaError_t err = cudaFuncSetAttribute(
-          edge_relax_kernel<kVec>,
+          edge_relax_kernel<kVec, kWide>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return static_cast<int>(err);
-  edge_relax_kernel<kVec><<<static_cast<unsigned int>(rows), kThreads, smem,
-                            s>>>(keys, src_t, dstloc_t, valid_t, rowblk_t,
-                                 out, n, rows_per_shard, be, block_v, nb,
-                                 step);
+  edge_relax_kernel<kVec, kWide><<<static_cast<unsigned int>(rows), kThreads,
+                                   smem, s>>>(keys, src_t, dstloc_t, valid_t,
+                                              rowblk_t, out, n,
+                                              rows_per_shard, be, block_v,
+                                              nb, step);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Launches the INF32 fill of chunked blocks and the sweep on `stream`;
-// returns the first CUDA error (0 on success). Tiles are
-// [rows / rows_per_shard, rows_per_shard, be]; every vertex of `out` [n]
-// is written, so it needs no fill on entry. block_v * 4 bytes of dynamic
-// shared memory per CTA (at most 232,448).
-extern "C" int edge_relax_launch(const int* keys, const int* src_t,
-                                 const int* dstloc_t, const int* valid_t,
-                                 const int* rowblk_t, int* out, int n,
-                                 int rows, int rows_per_shard, int be,
-                                 int block_v, int nb, int step,
-                                 void* stream) {
-  if (rows == 0 || n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fill_chunked_kernel<<<static_cast<unsigned int>(rows), kThreads, 0, s>>>(
-      out, rowblk_t, n, rows_per_shard, block_v, nb);
-  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+template <bool kWide>
+int launch_mode(const int* keys, const int* src_t, const int* dstloc_t,
+                const int* valid_t, const int* rowblk_t, int* out, int n,
+                int rows, int rows_per_shard, int be, int block_v, int nb,
+                int step, cudaStream_t s) {
   const bool vec =
       be % 4 == 0 &&
       ((reinterpret_cast<uintptr_t>(src_t) |
         reinterpret_cast<uintptr_t>(dstloc_t) |
         reinterpret_cast<uintptr_t>(valid_t)) &
        15) == 0;
-  return vec ? launch_sweep<true>(keys, src_t, dstloc_t, valid_t, rowblk_t,
+  return vec ? launch_sweep<true, kWide>(keys, src_t, dstloc_t, valid_t,
+                                         rowblk_t, out, n, rows,
+                                         rows_per_shard, be, block_v, nb,
+                                         step, s)
+             : launch_sweep<false, kWide>(keys, src_t, dstloc_t, valid_t,
+                                          rowblk_t, out, n, rows,
+                                          rows_per_shard, be, block_v, nb,
+                                          step, s);
+}
+
+}  // namespace
+
+// Launches the INF32 fill (of chunked blocks in the tiled mode, of all of
+// `out` in the wide mode) and the sweep on `stream`; returns the first
+// CUDA error (0 on success). Tiles are [rows / rows_per_shard,
+// rows_per_shard, be]; every vertex of `out` [n] is written, so it needs
+// no fill on entry. `wide`: the mode (kernel.py: edge_relax_mode); the
+// tiled mode takes block_v * 4 bytes of dynamic shared memory per CTA (at
+// most 232,448), the wide mode none.
+extern "C" int edge_relax_launch(const int* keys, const int* src_t,
+                                 const int* dstloc_t, const int* valid_t,
+                                 const int* rowblk_t, int* out, int n,
+                                 int rows, int rows_per_shard, int be,
+                                 int block_v, int nb, int step, int wide,
+                                 void* stream) {
+  if (rows == 0 || n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    const int need = (n + kThreads - 1) / kThreads;
+    fill_inf_kernel<<<need < (1 << 16) ? need : (1 << 16), kThreads, 0, s>>>(
+        out, n);
+  } else {
+    fill_chunked_kernel<<<static_cast<unsigned int>(rows), kThreads, 0, s>>>(
+        out, rowblk_t, n, rows_per_shard, block_v, nb);
+  }
+  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  return wide ? launch_mode<true>(keys, src_t, dstloc_t, valid_t, rowblk_t,
                                   out, n, rows, rows_per_shard, be, block_v,
                                   nb, step, s)
-             : launch_sweep<false>(keys, src_t, dstloc_t, valid_t, rowblk_t,
+              : launch_mode<false>(keys, src_t, dstloc_t, valid_t, rowblk_t,
                                    out, n, rows, rows_per_shard, be, block_v,
                                    nb, step, s);
 }

@@ -46,13 +46,31 @@
 //   in double-buffered chunks with cp.async: the next chunk's copies are
 //   in flight while the current chunk's keys are gathered. Each lane
 //   issues the gathers of kUnroll slots before it uses any of them.
-// - The fold is order-free: candidates are atomicMin'ed into the shared
-//   tile, its columns XOR-swizzled by the vertex so that the write-out
-//   reads it without bank conflicts. A block with one tile row then
-//   stores its planes' runs with plain coalesced stores (no `inf` fill of
-//   `out` beforehand); the rows of a block chunked over several rows
-//   atomicMin into an `out` region that fill_chunked_kernel filled with
-//   `inf` first. One CTA per row, not per block, so a hub block split
+// - The fold is order-free, in one of two modes that the wrapper picks
+//   from block_v (kernel.py: sweep_mode; the threshold is
+//   SWEEP_MAX_BLOCK_V = 28032, the widest block whose one-plane tile and
+//   hub words fit the CTA's shared memory).
+//   Tiled mode (block_v <= 28032): candidates are atomicMin'ed into the
+//   shared tile, its columns XOR-swizzled by the vertex so that the
+//   write-out reads it without bank conflicts. A block with one tile row
+//   then stores its planes' runs with plain coalesced stores (no `inf`
+//   fill of `out` beforehand); the rows of a block chunked over several
+//   rows atomicMin into an `out` region that fill_chunked_kernel filled
+//   with `inf` first.
+//   Wide mode (block_v > 28032, up to any width): no tile. fill_inf_kernel
+//   fills all of `out` with `inf` over the whole grid, the hub bits are
+//   packed once per call into words [groups, n] (pack_mask_kernel on hub
+//   [P, n]), and each candidate that lands below `inf` after its hub
+//   clear is atomicMin'ed straight into `out` in device memory. A
+//   candidate still at `inf` changes nothing there and is skipped; one
+//   that saturated into a hub reads INF_KEY2 & ~1 and is kept, as in the
+//   tiled mode's chunked fold. A candidate at or above what `out` holds
+//   (read from L2 first) is skipped too: `out` only falls, so that is
+//   exact, and it took the key2 wave at block_v 2^20 from 9.26 to 6.16
+//   ms (tools/probe_wide.py). The CTA's shared memory is then the staged
+//   chunks alone, so the group is min(P, 32) planes at any block_v, and
+//   vertex offsets are counted in 64 bits.
+//   One CTA per row, not per block, in both modes, so a hub block split
 //   over many rows runs as many CTAs.
 //
 // The sum is taken in int64: keys reach 2^30+3 (INF_KEY4) and step*w
@@ -64,7 +82,11 @@
 // random (~1 GB a wave on the main path, against the 134 MB of keys the
 // bound counts); no TMA or warp specialisation (cp.async from every
 // thread); the transpose and the mask pack are passes of their own over
-// device memory; no persistent CTAs.
+// device memory; no persistent CTAs. In the wide mode the planes of one
+// candidate's vertex lie in P different lines of the plane-major `out`,
+// so each of its atomics is a sector of its own: the fold takes most of
+// the wave (tools/probe_wide.py: 0.73 ms without it, 2.2 ms with the
+// atomics on a vertex-major layout, whose transpose back is not built).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -245,11 +267,25 @@ __global__ void fill_chunked_kernel(int* __restrict__ out,
   }
 }
 
+// Wide mode: fill all `count` entries of `out` with `inf`, grid-stride.
+__global__ void fill_inf_kernel(int* __restrict__ out, long long count,
+                                int inf) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < count; i += stride)
+    out[i] = inf;
+}
+
 // One CTA per (tile row, plane group); lane (sub, li) works on planes
 // g0 + 4 li .. g0 + 4 li + 3 of the warp's sub-th slot of each step. The
-// tile has gs = 2^gs_log2 columns, the key copy kw = max(4, gs).
+// tile has gs = 2^gs_log2 columns, the key copy kw = max(4, gs). kWide:
+// the wide mode, which has no tile and reads the hub bits from
+// hub_words [groups, n] (null without a hub) in place of `hub`.
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
     const int* __restrict__ keys_t, const uint8_t* __restrict__ hub,
+    const uint32_t* __restrict__ hub_words,
     const int* __restrict__ src_t, const int* __restrict__ dstloc_t,
     const int* __restrict__ perm_t, const int* __restrict__ slot_t,
     const int* __restrict__ rowblk_t, const uint8_t* __restrict__ mask,
@@ -260,8 +296,9 @@ __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
   const int gs = 1 << gs_log2, gmask = gs - 1, kw = max(4, gs);
   extern __shared__ __align__(16) int smem[];
   int* stage = smem;                             // [2][kStreams][kChunk]
-  int* tile = smem + 2 * kStreams * kChunk;      // [block_v][gs]
-  uint32_t* hubw = reinterpret_cast<uint32_t*>(tile + block_v * gs);
+  int* tile = smem + 2 * kStreams * kChunk;      // [block_v][gs], tiled
+  uint32_t* hubw =                               // [block_v], tiled
+      reinterpret_cast<uint32_t*>(tile + (kWide ? 0 : block_v * gs));
 
   const long long bid = blockIdx.x;
   const int grp = static_cast<int>(bid % groups);
@@ -276,21 +313,23 @@ __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
   const int nchunks = (be + kChunk - 1) / kChunk;
   if (nchunks > 0) stage_chunk(stage, streams, 0, min(be, kChunk), vec);
 
-  const int cells = block_v * gs;
-  const int4 inf4 = make_int4(inf, inf, inf, inf);
-  for (int i = threadIdx.x; i < cells / 4; i += kThreads)
-    reinterpret_cast<int4*>(tile)[i] = inf4;
-  for (int i = (cells & ~3) + threadIdx.x; i < cells; i += kThreads)
-    tile[i] = inf;
-  for (int i = threadIdx.x; i < block_v; i += kThreads) {
-    uint32_t bits = 0;
-    const long long v = r.base + i;
-    if (hub != nullptr && v < n)
-      for (int g = 0; g < gcur; ++g)
-        bits |= static_cast<uint32_t>(
-                    hub[static_cast<long long>(g0 + g) * n + v] != 0)
-                << g;
-    hubw[i] = bits;
+  if constexpr (!kWide) {
+    const int cells = block_v * gs;
+    const int4 inf4 = make_int4(inf, inf, inf, inf);
+    for (int i = threadIdx.x; i < cells / 4; i += kThreads)
+      reinterpret_cast<int4*>(tile)[i] = inf4;
+    for (int i = (cells & ~3) + threadIdx.x; i < cells; i += kThreads)
+      tile[i] = inf;
+    for (int i = threadIdx.x; i < block_v; i += kThreads) {
+      uint32_t bits = 0;
+      const long long v = r.base + i;
+      if (hub != nullptr && v < n)
+        for (int g = 0; g < gcur; ++g)
+          bits |= static_cast<uint32_t>(
+                      hub[static_cast<long long>(g0 + g) * n + v] != 0)
+                  << g;
+      hubw[i] = bits;
+    }
   }
 
   const int lanes_per_slot = kw / 4;  // 1 .. 8
@@ -307,6 +346,12 @@ __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
   const int* keys_g = keys_t + static_cast<long long>(grp) * n * kw + c0;
   const uint32_t* words_g =
       mask_words != nullptr ? mask_words + grp * e2 : nullptr;
+  // Wide mode: the group's hub words and its lane's first plane of `out`.
+  const uint32_t* hubs_g =
+      kWide && hub_words != nullptr
+          ? hub_words + static_cast<long long>(grp) * n
+          : nullptr;
+  int* out_g = out + static_cast<long long>(g0 + c0) * n;
 
   for (int k = 0; k < nchunks; ++k) {
     const int lo = k * kChunk;
@@ -350,58 +395,95 @@ __global__ void __launch_bounds__(kThreads) relax_sweep_kernel(
         for (int u = 0; u < kUnroll; ++u) {
           if (live[u] == 0) continue;
           const int dl = c_dl[j0 + u * step_slots];
-          const uint32_t hubs = hubw[dl] >> c0;
           const long long sw = static_cast<long long>(step) * wv[u];
-          int* cell = tile + dl * gs;
-          const int swz = dl & gmask;
           const int k4[4] = {key[u].x, key[u].y, key[u].z, key[u].w};
+          if constexpr (kWide) {
+            // Saturate, clear the hub bit, then fold what lies below inf
+            // and below what `out` holds: `out` only falls during the
+            // sweep, so any value read from it bounds its final min.
+            const long long v = r.base + dl;
+            const uint32_t hubs = hubs_g != nullptr ? hubs_g[v] >> c0 : 0u;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (!((live[u] >> q) & 1)) continue;
-            const long long sum = k4[q] + sw;
-            int cand = sum < inf ? static_cast<int>(sum) : inf;
-            if ((hubs >> q) & 1) cand &= ~clear;
-            atomicMin(cell + ((c0 + q) ^ swz), cand);
+            for (int q = 0; q < 4; ++q) {
+              if (!((live[u] >> q) & 1)) continue;
+              const long long sum = k4[q] + sw;
+              int cand = sum < inf ? static_cast<int>(sum) : inf;
+              if ((hubs >> q) & 1) cand &= ~clear;
+              int* o = out_g + static_cast<long long>(q) * n + v;
+              if (cand < inf && cand < __ldcg(o)) atomicMin(o, cand);
+            }
+          } else {
+            const uint32_t hubs = hubw[dl] >> c0;
+            int* cell = tile + dl * gs;
+            const int swz = dl & gmask;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if (!((live[u] >> q) & 1)) continue;
+              const long long sum = k4[q] + sw;
+              int cand = sum < inf ? static_cast<int>(sum) : inf;
+              if ((hubs >> q) & 1) cand &= ~clear;
+              atomicMin(cell + ((c0 + q) ^ swz), cand);
+            }
           }
         }
       }
     }
     __syncthreads();
   }
-  __syncthreads();  // the tile is complete (also when the row is empty)
+  if constexpr (!kWide) {
+    __syncthreads();  // the tile is complete (also when the row is empty)
 
-  for (int idx = threadIdx.x; idx < gcur * block_v; idx += kThreads) {
-    const int gg = idx / block_v, i = idx - gg * block_v;
-    const long long v = r.base + i;
-    if (v >= n) continue;
-    const int val = tile[i * gs + (gg ^ (i & gmask))];
-    int* o = out + static_cast<long long>(g0 + gg) * n + v;
-    if (!r.chunked)
-      *o = val;
-    else if (val < inf)
-      atomicMin(o, val);
+    for (int idx = threadIdx.x; idx < gcur * block_v; idx += kThreads) {
+      const int gg = idx / block_v, i = idx - gg * block_v;
+      const long long v = r.base + i;
+      if (v >= n) continue;
+      const int val = tile[i * gs + (gg ^ (i & gmask))];
+      int* o = out + static_cast<long long>(g0 + gg) * n + v;
+      if (!r.chunked)
+        *o = val;
+      else if (val < inf)
+        atomicMin(o, val);
+    }
   }
+}
+
+// The tiled mode's shared memory: opt in to `smem_bytes` of it and
+// prefer the largest carveout. (The wide mode's 8 KB need neither, and
+// leave the rest of the SM's 256 KB to L1.)
+int set_tiled_attributes(int smem_bytes) {
+  if (cudaError_t err = cudaFuncSetAttribute(
+          relax_sweep_kernel<false>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes))
+    return static_cast<int>(err);
+  return static_cast<int>(cudaFuncSetAttribute(
+      relax_sweep_kernel<false>,
+      cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared));
 }
 
 }  // namespace
 
 // Launches the sweep's kernels on `stream`: the key transpose, the
-// per-plane mask pack (when mask_per_plane), the `inf` fill of chunked
-// blocks and the sweep. Returns the first CUDA error (0 on success).
+// per-plane mask pack (when mask_per_plane), then in the tiled mode the
+// `inf` fill of chunked blocks, in the wide mode the hub pack (when there
+// is a hub) and the `inf` fill of all of `out`, and the sweep. Returns
+// the first CUDA error (0 on success).
 //
 // keys [P, n]; keys_t [groups, n, max(4, 2^ceil(log2 group))] scratch;
 // hub [P, n] or null; tiles [S * NR, be]; rowblk_t [S * NR]; mask [P, E2]
 // when mask_per_plane, else [E2]; mask_words [groups, E2] scratch when
-// mask_per_plane; w [E2]; out [P, n], written in full. `group` planes per CTA (the last group may
-// hold fewer); `smem_bytes` the sweep CTA's dynamic shared memory.
+// mask_per_plane; hub_words [groups, n] scratch in the wide mode with a
+// hub; w [E2]; out [P, n], written in full. `group` planes per CTA (the
+// last group may hold fewer); `smem_bytes` the sweep CTA's dynamic shared
+// memory; `wide` the mode (kernel.py: sweep_mode).
 extern "C" int relax_sweep_launch(
     const int* keys, const uint8_t* hub, const int* src_t,
     const int* dstloc_t, const int* perm_t, const int* slot_t,
     const int* rowblk_t, const uint8_t* mask, int mask_per_plane,
-    const int* w, int* out, int* keys_t, uint32_t* mask_words, int planes,
-    int group, int smem_bytes, int n, long long e2, int shards,
-    int rows_per_shard, int be, int block_v, int nb, int step, int inf,
-    int clear, void* stream) {
+    const int* w, int* out, int* keys_t, uint32_t* mask_words,
+    uint32_t* hub_words, int planes, int group, int smem_bytes, int wide,
+    int n, long long e2, int shards, int rows_per_shard, int be,
+    int block_v, int nb, int step, int inf, int clear, void* stream) {
   if (planes == 0 || n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int groups = (planes + group - 1) / group;
@@ -413,22 +495,35 @@ extern "C" int relax_sweep_launch(
   transpose_kernel<<<tgrid, dim3(32, 8), 0, s>>>(keys, keys_t, planes, group,
                                                  kw_log2, groups, n);
   if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  if (mask_per_plane && e2 > 0) {
-    const long long quads = (e2 + 3) / 4;
+  // Bits [P, len] bool -> words [groups, len], one bit per plane.
+  auto pack = [&](const uint8_t* bits, uint32_t* words, long long len) {
+    const long long quads = (len + 3) / 4;
     const dim3 grid(static_cast<unsigned>((quads + kThreads - 1) / kThreads),
                     groups);
-    const bool vec = e2 % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(mask) % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(mask_words) % 16 == 0;
-    pack_mask_kernel<<<grid, kThreads, 0, s>>>(mask, mask_words, planes,
-                                               group, e2, vec);
-    if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  }
+    const bool vec = len % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(bits) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(words) % 16 == 0;
+    pack_mask_kernel<<<grid, kThreads, 0, s>>>(bits, words, planes, group,
+                                               len, vec);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (mask_per_plane && e2 > 0)
+    if (int err = pack(mask, mask_words, e2)) return err;
   const long long grid =
       static_cast<long long>(shards) * rows_per_shard * groups;
-  fill_chunked_kernel<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-      out, rowblk_t, planes, group, groups, n, rows_per_shard, block_v, nb,
-      inf);
+  if (wide) {
+    if (hub != nullptr)
+      if (int err = pack(hub, hub_words, n)) return err;
+    const long long count = static_cast<long long>(planes) * n;
+    const long long need = (count + kThreads - 1) / kThreads;
+    const long long blocks = need < (1 << 16) ? need : (1 << 16);
+    fill_inf_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        out, count, inf);
+  } else {
+    fill_chunked_kernel<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+        out, rowblk_t, planes, group, groups, n, rows_per_shard, block_v,
+        nb, inf);
+  }
   if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
 
   const bool vec =
@@ -438,16 +533,13 @@ extern "C" int relax_sweep_launch(
         reinterpret_cast<uintptr_t>(perm_t) |
         reinterpret_cast<uintptr_t>(slot_t)) &
        15) == 0;
-  if (cudaError_t err = cudaFuncSetAttribute(
-          relax_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem_bytes))
-    return static_cast<int>(err);
-  if (cudaError_t err = cudaFuncSetAttribute(
-          relax_sweep_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-          cudaSharedmemCarveoutMaxShared))
-    return static_cast<int>(err);
-  relax_sweep_kernel<<<static_cast<unsigned>(grid), kThreads, smem_bytes, s>>>(
-      keys_t, hub, src_t, dstloc_t, perm_t, slot_t, rowblk_t, mask,
+  if (!wide)
+    if (int err = set_tiled_attributes(smem_bytes)) return err;
+  const auto kernel =
+      wide ? relax_sweep_kernel<true> : relax_sweep_kernel<false>;
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem_bytes, s>>>(
+      keys_t, hub, wide && hub != nullptr ? hub_words : nullptr, src_t,
+      dstloc_t, perm_t, slot_t, rowblk_t, mask,
       mask_per_plane ? mask_words : nullptr, w, out, planes, group, gs_log2,
       groups, n, e2, rows_per_shard, be, block_v, nb, step, inf, clear, vec);
   return static_cast<int>(cudaGetLastError());

@@ -17,10 +17,14 @@ PyTorch on the same tiled arrays — for CPU tensors; any other device
 raises. They replace the Pallas `_relax_sweep_kernel` and its row fold
 `_reduce_rows` in `repro/kernels/edge_relax/kernel.py`, where each plane
 is one vmapped `pallas_call`. The kernel walks each tile row once for a
-group of up to 32 planes (`plane_group` sizes the group to the shared
-memory) and reads the keys through a vertex-major copy that it makes
-itself ([groups, n, max(4, group_width)]; [n, 32] for 32 planes); the
-arguments and the result stay plane-major [P, n].
+group of up to 32 planes (`plane_group` sizes the group) and reads the
+keys through a vertex-major copy that it makes itself ([groups, n,
+max(4, group_width)]; [n, 32] for 32 planes); the arguments and the
+result stay plane-major [P, n]. It folds in one of two modes, which
+`sweep_mode` picks from block_v alone: the tiled mode (block_v <=
+SWEEP_MAX_BLOCK_V) folds each row's candidates in a tile in shared
+memory, the wide mode (any wider block_v) atomicMin's them straight into
+`out` in device memory. Both take every block_v the reference takes.
 
 `edge_relax` is the legacy sweep of one plane with its validity baked
 into the tiles at prepare time (`ops.prepare`) and no weight or hub:
@@ -31,9 +35,10 @@ into the tiles at prepare time (`ops.prepare`) and no weight or hub:
 where sat maps a negative (wrapped) int32 sum to INF32 and clamps at
 INF32. It launches `csrc/edge_relax.cu` for CUDA tensors and runs
 `edge_relax_plain` for CPU tensors, replacing the Pallas `_relax_kernel`
-(and its `_reduce_rows` fold) of the same reference module. The kernel
-keeps one int32 per vertex of a block in shared memory, so it takes
-block_v <= EDGE_RELAX_MAX_BLOCK_V.
+(and its `_reduce_rows` fold) of the same reference module. Its tiled
+mode keeps one int32 per vertex of a block in shared memory (block_v <=
+EDGE_RELAX_MAX_BLOCK_V); past that its wide mode folds into `out` in
+device memory (`edge_relax_mode`).
 
 The host tiling below (`block_edges_topology`, `aligned_vertex_count`,
 `shard_tiling`) is numpy, copied from the reference so that both packages
@@ -57,9 +62,11 @@ from repro_torch.kernels import build
 SWEEP_SHARED_BYTES = 232_448
 SWEEP_MAX_GROUP = 32  # planes per CTA: one warp's lanes
 SWEEP_CHUNK = 256     # slots per staged chunk (kChunk in relax_sweep.cu)
-#: The widest block_v whose one-plane tile and hub words still fit.
+#: The widest block_v of kernel A's tiled mode, whose one-plane tile and
+#: hub words still fit; wider blocks run in its wide mode.
 SWEEP_MAX_BLOCK_V = (SWEEP_SHARED_BYTES // 4 - 8 * SWEEP_CHUNK) // 2
-#: The widest block_v of kernel C: its CTA holds one int32 per vertex.
+#: The widest block_v of kernel C's tiled mode, whose CTA holds one int32
+#: per vertex; wider blocks run in its wide mode.
 EDGE_RELAX_MAX_BLOCK_V = SWEEP_SHARED_BYTES // 4
 
 INF32 = 1 << 29  # the legacy sweep's infinity, fixed as in the reference
@@ -216,26 +223,37 @@ def group_width(group: int) -> int:
     return 1 << max(group - 1, 0).bit_length()
 
 
+def sweep_mode(block_v: int) -> str:
+    """Kernel A's fold for blocks of `block_v` vertices: "tiled" (a tile
+    in shared memory) up to SWEEP_MAX_BLOCK_V, "wide" (atomics into `out`
+    in device memory) past it."""
+    return "tiled" if block_v <= SWEEP_MAX_BLOCK_V else "wide"
+
+
+def edge_relax_mode(block_v: int) -> str:
+    """Kernel C's fold, by the same rule at EDGE_RELAX_MAX_BLOCK_V."""
+    return "tiled" if block_v <= EDGE_RELAX_MAX_BLOCK_V else "wide"
+
+
 def sweep_shared_bytes(group: int, block_v: int) -> int:
     """Dynamic shared memory of one kernel-A CTA for `group` planes: two
-    staged chunks of the four index streams, the [block_v, group_width]
-    int32 tile and one hub word per vertex of the block."""
-    return 4 * (2 * 4 * SWEEP_CHUNK + block_v * group_width(group) + block_v)
+    staged chunks of the four index streams, then in the tiled mode the
+    [block_v, group_width] int32 tile and one hub word per vertex of the
+    block (the wide mode keeps neither)."""
+    staged = 4 * 2 * 4 * SWEEP_CHUNK
+    if sweep_mode(block_v) == "wide":
+        return staged
+    return staged + 4 * (block_v * group_width(group) + block_v)
 
 
 def plane_group(p: int, block_v: int) -> int:
     """Planes per CTA of kernel A for P = `p` planes.
 
-    The most that one warp's lanes and the shared memory allow (at most
-    32), then evened out over the ceil(P / G) groups, so that P = 33 runs
-    as groups of 17 and 16 rather than 32 and 1. Raises ValueError when
-    not even one plane's tile fits.
+    The most that one warp's lanes and, in the tiled mode, the shared
+    memory allow (at most 32; min(P, 32) in the wide mode), then evened
+    out over the ceil(P / G) groups, so that P = 33 runs as groups of 17
+    and 16 rather than 32 and 1.
     """
-    if block_v > SWEEP_MAX_BLOCK_V:
-        raise ValueError(
-            f"block_v={block_v} needs {sweep_shared_bytes(1, block_v)} bytes "
-            f"of shared memory per CTA; the limit is {SWEEP_SHARED_BYTES} "
-            f"(block_v <= {SWEEP_MAX_BLOCK_V})")
     p = max(p, 1)
     g = min(p, SWEEP_MAX_GROUP)
     while sweep_shared_bytes(g, block_v) > SWEEP_SHARED_BYTES:
@@ -244,8 +262,8 @@ def plane_group(p: int, block_v: int) -> int:
     return -(-p // groups)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-             + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+             + [ctypes.c_int] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 8
              + [ctypes.c_void_p])
 
 
@@ -294,26 +312,31 @@ def relax_sweep(keys: torch.Tensor, hub: torch.Tensor | None,
     if any(a is not None and not a.is_contiguous() for a in args):
         raise ValueError("sweep tensors must be contiguous")
     group = plane_group(p, block_v)
+    wide = sweep_mode(block_v) == "wide"
     s, nr, be = src_t.shape
     dev = keys.device
     groups = -(-p // group)
-    # The kernel writes every entry of `out`. keys_t and mask_words are
-    # its scratch: each group's keys vertex-major, at least four columns
-    # wide (a lane loads four planes at once), and a per-plane mask as one
-    # bit per plane [groups, E2].
+    # The kernel writes every entry of `out`. keys_t, mask_words and
+    # hub_words are its scratch: each group's keys vertex-major, at least
+    # four columns wide (a lane loads four planes at once), and a
+    # per-plane mask and (in the wide mode) the hub as one bit per plane
+    # [groups, E2] and [groups, n].
     out = torch.empty((p, n), dtype=torch.int32, device=dev)
     keys_t = torch.empty((groups, n, max(4, group_width(group))),
                          dtype=torch.int32, device=dev)
     per_plane = mask.dim() == 2
     mask_words = torch.empty((groups, e2) if per_plane else (0,),
                              dtype=torch.int32, device=dev)
+    hub_words = torch.empty((groups, n) if wide and hub is not None
+                            else (0,), dtype=torch.int32, device=dev)
     err = build.function("relax_sweep", "relax_sweep_launch", _ARGTYPES)(
         keys.data_ptr(), hub.data_ptr() if hub is not None else None,
         src_t.data_ptr(), dstloc_t.data_ptr(), perm_t.data_ptr(),
         slot_t.data_ptr(), rowblk_t.data_ptr(), mask.data_ptr(),
         int(per_plane), w.data_ptr(), out.data_ptr(), keys_t.data_ptr(),
-        mask_words.data_ptr(), p, group, sweep_shared_bytes(group, block_v),
-        n, e2, s, nr, be, block_v, nb, step, inf, clear_bit,
+        mask_words.data_ptr(), hub_words.data_ptr(), p, group,
+        sweep_shared_bytes(group, block_v), int(wide), n, e2, s, nr, be,
+        block_v, nb, step, inf, clear_bit,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -340,7 +363,7 @@ def edge_relax_plain(keys: torch.Tensor, src_t: torch.Tensor,
                               INF32)[:n]
 
 
-_EDGE_RELAX_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+_EDGE_RELAX_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                         + [ctypes.c_void_p])
 
 
@@ -375,20 +398,16 @@ def edge_relax(keys: torch.Tensor, src_t: torch.Tensor,
         raise ValueError(f"no edge_relax kernel for device {keys.device}")
     if any(not a.is_contiguous() for a in (keys, *tiles, rowblk_t)):
         raise ValueError("edge_relax tensors must be contiguous")
-    if block_v > EDGE_RELAX_MAX_BLOCK_V:
-        raise ValueError(
-            f"block_v={block_v} needs {4 * block_v} bytes of shared memory "
-            f"per CTA; the limit is {SWEEP_SHARED_BYTES} "
-            f"(block_v <= {EDGE_RELAX_MAX_BLOCK_V})")
     s, nr, be = src_t.shape
-    # The kernel writes every vertex: one-row blocks store their tile,
-    # chunked blocks are filled with INF32 first and then min-folded.
+    # The kernel writes every vertex: in the tiled mode one-row blocks
+    # store their tile, chunked blocks are filled with INF32 first and
+    # then min-folded; in the wide mode all of `out` is filled first.
     out = torch.empty((n,), dtype=torch.int32, device=keys.device)
     err = build.function("edge_relax", "edge_relax_launch",
                          _EDGE_RELAX_ARGTYPES)(
         keys.data_ptr(), src_t.data_ptr(), dstloc_t.data_ptr(),
         valid_t.data_ptr(), rowblk_t.data_ptr(), out.data_ptr(), n, s * nr,
-        nr, be, block_v, nb, step,
+        nr, be, block_v, nb, step, int(edge_relax_mode(block_v) == "wide"),
         torch.cuda.current_stream(keys.device).cuda_stream)
     if err != 0:
         raise RuntimeError(

@@ -13,8 +13,9 @@ and H that are all INF32.
 
 Edge relax: BE % 4 in {0, 1, 3} (the 16-byte and the 4-byte load
 paths), chunked and sharded tilings with a short last shard, block_v of
-16384, of kernel A's limit and of kernel C's own limit, keys near INF32
-and 2^31 - 1, all slots invalid and a graph with no slots.
+16384, of kernel A's tiled-mode limit, of kernel C's own (the widest of
+its tiled mode) and past it (58,113 and 131,072: its wide mode), keys
+near INF32 and 2^31 - 1, all slots invalid and a graph with no slots.
 """
 from __future__ import annotations
 
@@ -143,7 +144,8 @@ def _zero_slots():
 def edge_relax_names() -> list[str]:
     return (["be8", "be5", "be7", "unchunked", "short-last-shard",
              "block-v-16384", "block-v-sweep-max", "block-v-max",
-             "near-inf", "all-invalid", "zero-slots"])
+             "near-inf", "all-invalid", "zero-slots", "block-v-58113",
+             "block-v-131072"])
 
 
 def edge_relax_case(name: str) -> list[EdgeRelaxInput]:
@@ -156,7 +158,9 @@ def edge_relax_case(name: str) -> list[EdgeRelaxInput]:
             "block-v-sweep-max": lambda: _wide(kernel.SWEEP_MAX_BLOCK_V),
             "block-v-max": lambda: _wide(kernel.EDGE_RELAX_MAX_BLOCK_V),
             "near-inf": _near_inf, "all-invalid": _all_invalid,
-            "zero-slots": _zero_slots}[name]()
+            "zero-slots": _zero_slots,
+            "block-v-58113": lambda: _wide(kernel.EDGE_RELAX_MAX_BLOCK_V + 1),
+            "block-v-131072": lambda: _wide(1 << 17)}[name]()
 
 
 def edge_relax_args(c: EdgeRelaxInput, step: int, device) -> tuple:

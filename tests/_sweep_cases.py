@@ -10,6 +10,11 @@ multiple of the kernel's plane group, every `block_v` up to the largest
 the first kernel took, chunked rows, shards, shared and per-plane masks
 with E2 % 4 in {0, 2}, hub None and set, keys that saturate, an
 all-masked sweep, a zero-capacity graph and n not a multiple of block_v.
+The `wide-*` cases run the kernel's wide mode (block_v past
+`kernel.SWEEP_MAX_BLOCK_V`): P in {1, 3, 33} at block_v 28,033 and
+65,536, a one-block tiling (block_v 65,536 > n = 40) and a wide block
+chunked over several rows on two shards. They stay out of the
+PLANES × BLOCK_VS grid, whose P = 1024 would take 400 MB of keys there.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ PLANES = (1, 3, 31, 32, 33, 100, 1024)
 BLOCK_VS = (4, 16, 512, 2048, 12288)
 BLOCK_ES = (None, 1, 7)
 SHARDS = (1, 2, 3)
+WIDE_PLANES = (1, 3, 33)
+WIDE_BLOCK_VS = (28_033, 65_536)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,16 +87,17 @@ def _planes_block_v(p: int, block_v: int, max_edges: int):
                    **tiling)]
 
 
-def _rows(block_e: int | None, shards: int, p: int):
+def _rows(block_e: int | None, shards: int, p: int, block_v: int = 16,
+          n: int = 61, m: int = 240):
     """Chunked rows and shards at P = 33 (two plane groups), or its first
     three planes (one group): every parameter set with hub None/set and
-    mask shared/per-plane, then an empty mask."""
+    mask shared/per-plane, then an empty mask. `m` edge slots over n
+    vertices in blocks of `block_v`."""
     rng = np.random.default_rng(100 + 10 * (block_e or 0) + shards)
-    n = 61
-    src, dst, keep, w = _graph(rng, n, 240)
+    src, dst, keep, w = _graph(rng, n, m)
     masks = (keep & (rng.random((33, len(src))) < 0.85))[:p]
     hub = (rng.random((33, n)) < 0.3)[:p]
-    tiling = dict(src=src, dst=dst, keep=keep, n=n, block_v=16,
+    tiling = dict(src=src, dst=dst, keep=keep, n=n, block_v=block_v,
                   shards=shards, block_e=block_e, w=w)
     out = []
     for step, inf, clear in PARAMS:
@@ -194,7 +202,10 @@ def names() -> list[str]:
             + [f"mask-{k}-e2mod{r}" for k in ("shared", "perplane")
                for r in (0, 2)]
             + ["near-inf", "all-masked", "zero-capacity",
-               "short-last-shard"])
+               "short-last-shard"]
+            + [f"wide-p{p}-bv{bv}" for p in WIDE_PLANES
+               for bv in WIDE_BLOCK_VS]
+            + ["wide-one-block-p33", "wide-rows-be7-s2-p33"])
 
 
 def make(name: str, max_edges: int = 1 << 16) -> list[SweepInput]:
@@ -203,6 +214,16 @@ def make(name: str, max_edges: int = 1 << 16) -> list[SweepInput]:
     if name.startswith("planes"):
         p, bv = name[len("planes"):].split("-bv")
         return _planes_block_v(int(p), int(bv), max_edges)
+    if name.startswith("wide-p"):
+        p, bv = name[len("wide-p"):].split("-bv")
+        return _planes_block_v(int(p), int(bv), max_edges)
+    if name == "wide-one-block-p33":
+        return _rows(None, 1, 33, block_v=WIDE_BLOCK_VS[1], n=40, m=160)
+    if name == "wide-rows-be7-s2-p33":
+        # Two blocks of 28,033, one a shard, the second ragged; ~120 slots
+        # a block in rows of 7.
+        bv = WIDE_BLOCK_VS[0]
+        return _rows(7, 2, 33, block_v=bv, n=2 * bv - 5)
     if name.startswith("rows"):
         be, s, p = name[len("rows-be"):].replace("-s", " ").replace(
             "-p", " ").split()

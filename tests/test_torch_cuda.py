@@ -62,8 +62,9 @@ def test_relax_sweep_kernel_edge_cases(dev, name):
     P in {1, 3, 31, 32, 33, 100, 1024} × block_v in {4, ..., 12288},
     block_e in {None, 1, 7} × S in {1, 2, 3} at P in {3, 33} with every
     parameter set, hub and mask kind, shared and per-plane masks with
-    E2 % 4 in {0, 2}, near-INF keys, all-masked, zero capacity and the
-    short last shard."""
+    E2 % 4 in {0, 2}, near-INF keys, all-masked, zero capacity, the
+    short last shard, and the wide mode (P in {1, 3, 33} at block_v
+    28,033 and 65,536, one block, a wide block chunked on two shards)."""
     for c in cases.make(name):
         args = cases.sweep_args(c, dev)
         before = rk.launches
@@ -92,8 +93,9 @@ def test_sorted_impl_equals_kernel(dev, name):
 
 @pytest.mark.cuda
 def test_relax_sweep_kernel_block_v_limit(dev):
-    """The widest block_v whose one-plane tile fits runs (three planes,
-    one per CTA); one more raises the wrapper's ValueError, limit named."""
+    """The widest block_v of the tiled mode (three planes, one per CTA),
+    one vertex more and 2^17 (the wide mode, three planes in one CTA) each
+    equal the plain version, one launch a call."""
     rng = np.random.default_rng(5)
     n, m, p = 40, 120, 3
     src = rng.integers(0, n, m).astype(np.int32)
@@ -106,14 +108,12 @@ def test_relax_sweep_kernel_block_v_limit(dev):
     mask = torch.from_numpy(keep).to(dev)
     limit = rk.SWEEP_MAX_BLOCK_V
     assert rk.sweep_shared_bytes(1, limit) == rk.SWEEP_SHARED_BYTES
-    bg = rops.prepare_topology(src, dst, keep, n, limit, 1, None, device=dev)
-    _sweep_equal(bg, keys, hub, mask, w, 2, INF_KEY2, 1)
-    bg = rops.prepare_topology(src, dst, keep, n, limit + 1, 1, None,
-                               device=dev)
-    with pytest.raises(ValueError, match=f"block_v <= {limit}"):
-        rk.relax_sweep(keys, hub, bg.src_t, bg.dstloc_t, bg.perm_t,
-                       bg.slot_t, bg.rowblk_t, mask, w, 2, INF_KEY2, 1,
-                       bg.n, bg.block_v, bg.nb)
+    for block_v, mode in ((limit, "tiled"), (limit + 1, "wide"),
+                          (1 << 17, "wide")):
+        assert rk.sweep_mode(block_v) == mode
+        bg = rops.prepare_topology(src, dst, keep, n, block_v, 1, None,
+                                   device=dev)
+        _sweep_equal(bg, keys, hub, mask, w, 2, INF_KEY2, 1)
 
 
 @pytest.mark.cuda
@@ -167,8 +167,9 @@ def _edge_relax_equal(args):
 def test_edge_relax_kernel_matches_plain(dev, name):
     """Each edge-relax case of `tests/_kernel_cases.py` at steps 1, 2 and
     4: BE % 4 in {0, 1, 3}, chunked and sharded tilings with a short last
-    shard, block_v up to the kernel's limit, near-INF keys, all invalid,
-    zero slots; held to the COO oracle too."""
+    shard, block_v up to the tiled mode's limit and past it (the wide
+    mode), near-INF keys, all invalid, zero slots; held to the COO oracle
+    too."""
     for c in kcases.edge_relax_case(name):
         for step in kcases.STEPS:
             got = _edge_relax_equal(kcases.edge_relax_args(c, step, dev))
@@ -180,13 +181,17 @@ def test_edge_relax_kernel_matches_plain(dev, name):
 
 @pytest.mark.cuda
 def test_edge_relax_kernel_block_v_limit(dev):
-    """One block_v past the shared-memory limit raises the wrapper's
-    ValueError, the limit named."""
+    """The widest block_v of the tiled mode, one vertex more and 2^17
+    (the wide mode) each equal the plain version at every step, one
+    launch a call."""
     limit = rk.EDGE_RELAX_MAX_BLOCK_V
-    c = kcases.edge_relax_case("near-inf")[0]
-    c = dataclasses.replace(c, block_v=limit + 1)
-    with pytest.raises(ValueError, match=f"block_v <= {limit}"):
-        rk.edge_relax(*kcases.edge_relax_args(c, 1, dev))
+    for block_v, mode in ((limit, "tiled"), (limit + 1, "wide"),
+                          (1 << 17, "wide")):
+        assert rk.edge_relax_mode(block_v) == mode
+        c = dataclasses.replace(kcases.edge_relax_case("near-inf")[0],
+                                block_v=block_v)
+        for step in kcases.STEPS:
+            _edge_relax_equal(kcases.edge_relax_args(c, step, dev))
 
 
 def _embed_bag_close(table, idx, w):

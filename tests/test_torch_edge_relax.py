@@ -8,8 +8,10 @@ COO oracle `ref.edge_relax` are held to the reference's Pallas
 reference's shape grid, `block_e` None and 7, shards 1 and 2, an
 all-invalid mask, a zero-slot graph and keys near 2^31 - 1. The tiles of
 `ops.prepare`, `valid_t` included, equal the reference's. The edge cases
-of `tests/_kernel_cases.py`, which the card runs against the kernel, are
-held to the reference's COO oracle.
+of `tests/_kernel_cases.py`, which the card runs against the kernel (its
+wide mode among them, block_v 58,113 and 131,072), are held to the
+reference's COO oracle through the wrapper and `ops.edge_relax`, and the
+kernel's mode rule is checked on its own.
 """
 from __future__ import annotations
 
@@ -166,6 +168,8 @@ def test_edge_relax_rejects_bad_arguments():
 @pytest.mark.parametrize("name", kcases.edge_relax_names())
 def test_edge_relax_plain_on_kernel_cases(name):
     for c in kcases.edge_relax_case(name):
+        bg = tops.prepare(c.src, c.dst, c.valid, c.n, c.block_v, c.shards,
+                          c.block_e, device="cpu")
         for step in kcases.STEPS:
             args = kcases.edge_relax_args(c, step, "cpu")
             got = tker.edge_relax(*args).numpy()
@@ -173,3 +177,17 @@ def test_edge_relax_plain_on_kernel_cases(name):
                 jnp.asarray(c.keys), jnp.asarray(c.src), jnp.asarray(c.dst),
                 jnp.asarray(c.valid), step, c.n))
             np.testing.assert_array_equal(got, want, err_msg=c.label)
+            np.testing.assert_array_equal(
+                tops.edge_relax(args[0], bg, step).numpy(), want,
+                err_msg=f"ops.edge_relax: {c.label}")
+
+
+@pytest.mark.parametrize("block_v,mode", [
+    (8, "tiled"), (tker.SWEEP_MAX_BLOCK_V + 1, "tiled"),
+    (tker.EDGE_RELAX_MAX_BLOCK_V, "tiled"),
+    (tker.EDGE_RELAX_MAX_BLOCK_V + 1, "wide"), (1 << 20, "wide")])
+def test_edge_relax_mode_rule(block_v, mode):
+    """Kernel C folds in its shared tile up to EDGE_RELAX_MAX_BLOCK_V
+    (one int32 a vertex in 232,448 bytes) and in device memory past it."""
+    assert tker.EDGE_RELAX_MAX_BLOCK_V == tker.SWEEP_SHARED_BYTES // 4
+    assert tker.edge_relax_mode(block_v) == mode

@@ -7,10 +7,11 @@ what the wrapper runs for CPU tensors) and the port's COO reference
 three parameter sets, ragged `block_e`, the short-last-shard tiling,
 near-INF weights, an empty mask, per-plane and shared masks and P > 1
 planes. Every edge case of `tests/_sweep_cases.py` (plane counts up
-to 1024 and block_v up to 12288 among them) is held to the reference
-too, and the kernel's plane-group sizing is checked on its own. The host
-tiling arrays and the engine's fingerprint and plan cache are compared
-too.
+to 1024 and block_v up to 12288 among them, and the `wide-*` cases past
+`SWEEP_MAX_BLOCK_V`) is held to the reference too, through the kernel's
+wrapper and `ops.relax_sweep`, and the kernel's mode rule and
+plane-group sizing are checked on their own. The host tiling
+arrays and the engine's fingerprint and plan cache are compared too.
 """
 from __future__ import annotations
 
@@ -249,10 +250,20 @@ def test_fingerprint_and_plan_cache_match_reference():
 @pytest.mark.parametrize("name", cases.names())
 def test_sweep_edge_cases_match_reference(name):
     """Each sweep of the edge case: the port's tiled sweep on the CPU
-    (kernel A's plain version) against the reference's jnp branch over
-    all planes (vmapped), and plane 0 against its Pallas kernel."""
+    (kernel A's plain version, through the wrapper and `ops.relax_sweep`)
+    against the reference's jnp branch over all planes (vmapped), and
+    plane 0 against its Pallas kernel. (`test_torch_autotune.py` holds
+    the `sorted` impl to the plain version on the same cases.)"""
     for c in cases.make(name, max_edges=4096):
-        got = tker.relax_sweep(*cases.sweep_args(c, "cpu")).numpy()
+        args = cases.sweep_args(c, "cpu")
+        got = tker.relax_sweep(*args).numpy()
+        bg = tops.prepare_topology(c.src, c.dst, c.keep, c.n, c.block_v,
+                                   c.shards, c.block_e, device="cpu")
+        np.testing.assert_array_equal(
+            tops.relax_sweep(args[0], bg, args[7], c.step, c.inf,
+                             clear_bit=c.clear, hub=args[1],
+                             w=args[8]).numpy(), got,
+            err_msg=f"ops.relax_sweep: {c.label}")
         jg = JGraph(*(jnp.asarray(x) for x in (c.src, c.dst, c.keep, c.w)),
                     c.n)
         hub = None if c.hub is None else jnp.asarray(c.hub)
@@ -274,7 +285,8 @@ def test_sweep_edge_cases_match_reference(name):
 
 
 @pytest.mark.parametrize("p", cases.PLANES)
-@pytest.mark.parametrize("block_v", cases.BLOCK_VS + (tker.SWEEP_MAX_BLOCK_V,))
+@pytest.mark.parametrize("block_v", cases.BLOCK_VS + (tker.SWEEP_MAX_BLOCK_V,)
+                         + cases.WIDE_BLOCK_VS + (1 << 20,))
 def test_plane_group_fits_shared_memory(p, block_v):
     """Kernel A's plane group: at most 32 planes and the shared-memory
     limit, as few groups as that allows, evened out over them."""
@@ -297,5 +309,30 @@ def test_plane_group_limits():
     assert tker.plane_group(32, 12288) == 2
     assert tker.SWEEP_MAX_BLOCK_V == 28032
     assert tker.sweep_shared_bytes(1, 28032) == tker.SWEEP_SHARED_BYTES
-    with pytest.raises(ValueError, match="limit is 232448 .block_v <= 28032"):
-        tker.plane_group(1, 28033)
+    # One vertex wider no longer raises: the wide mode takes it, with the
+    # staged chunks alone in shared memory and a full group of planes.
+    assert tker.sweep_mode(28033) == "wide"
+    assert tker.plane_group(1, 28033) == 1
+    assert tker.plane_group(32, 28033) == 32
+    assert tker.sweep_shared_bytes(32, 28033) == 8 * 4 * tker.SWEEP_CHUNK
+
+
+@pytest.mark.parametrize("p,block_v,mode,group", [
+    (1, 4, "tiled", 1), (32, 512, "tiled", 32), (33, 512, "tiled", 17),
+    (32, 12288, "tiled", 2), (32, tker.SWEEP_MAX_BLOCK_V, "tiled", 1),
+    (1024, tker.SWEEP_MAX_BLOCK_V, "tiled", 1),
+    (1, tker.SWEEP_MAX_BLOCK_V + 1, "wide", 1),
+    (3, tker.SWEEP_MAX_BLOCK_V + 1, "wide", 3),
+    (33, tker.SWEEP_MAX_BLOCK_V + 1, "wide", 17),
+    (32, 65_536, "wide", 32), (100, 65_536, "wide", 25),
+    (1024, 1 << 20, "wide", 32), (32, 1 << 24, "wide", 32)])
+def test_sweep_mode_rule(p, block_v, mode, group):
+    """The wrapper's mode and plane group from (P, block_v) alone: the
+    tiled mode up to SWEEP_MAX_BLOCK_V, whose group the shared memory
+    sizes; the wide mode past it, min(P, 32) planes evened out, the
+    staged chunks alone in shared memory."""
+    assert tker.sweep_mode(block_v) == mode
+    assert tker.plane_group(p, block_v) == group
+    smem = tker.sweep_shared_bytes(group, block_v)
+    assert smem <= tker.SWEEP_SHARED_BYTES
+    assert (smem == 8 * 4 * tker.SWEEP_CHUNK) == (mode == "wide")
