@@ -15,6 +15,12 @@ Variants (paper §7 naming):
   BHLˢ  = BHL⁺ on the insertions, then on the deletions and re-weights
           (`batchhl_update_split`)
   UHL⁺  = BHL⁺ one update at a time (`uhl_update`)
+
+With `trace.enable(True)` (`repro_torch/trace.py`) an update's stages run
+under the spans `bhl.search`, `bhl.repair_base`, `bhl.edge_masks` (each
+derivation of the [P, E2] edge masks), `bhl.repair` and `bhl.commit`, and
+each frontier wave under `wave.<kind>`; the frontier mode's host reads
+count at site "frontier".
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.engine import (MAX_WAVES, WAVES, RelaxEngine,
                                      RelaxPlan, fixpoint, gather_rows,
                                      relax_rows, relax_sweep)
@@ -115,7 +122,7 @@ def frontier_wave(kind: str, plan: RelaxPlan, g: Graph, full_step,
     rows, syncs the host once more on the GPU.)
     """
     rows, flags = frontier_probe(plan, front)
-    live, count = flags.tolist()
+    live, count = trace.host_read("frontier", flags)
     return frontier_apply(kind, plan, g, full_step, masked_step, x, front,
                           rows, live, count)
 
@@ -128,13 +135,15 @@ def frontier_apply(kind: str, plan: RelaxPlan, g: Graph, full_step,
     ft = plan.frontier
     if not live:
         return x, front, False
-    WAVES[kind] += 1
-    if count <= ft.rows_cap:
-        WAVES[kind + ".masked"] += 1
-        nx = masked_step(x, gather_rows(plan, g, active_index(rows, count)))
-    else:
-        nx = full_step(x)
-    return nx, ft.changed_blocks(nx != x), True
+    with trace.span(trace.wave_span(kind)):
+        WAVES[kind] += 1
+        if count <= ft.rows_cap:
+            WAVES[kind + ".masked"] += 1
+            nx = masked_step(x, gather_rows(plan, g,
+                                            active_index(rows, count)))
+        else:
+            nx = full_step(x)
+        return nx, ft.changed_blocks(nx != x), True
 
 
 def _frontier_fixpoint(kind: str, plan: RelaxPlan, g: Graph, full_step,
@@ -240,8 +249,10 @@ def search_basic_planes(g_new: Graph, batch: BatchUpdate,
 def batch_search_basic(g_old: Graph, g_new: Graph, batch: BatchUpdate,
                        labelling: HighwayLabelling,
                        plan: RelaxPlan | None = None) -> torch.Tensor:
-    """Returns aff[R, V] bool — the CP-affected supersets, per landmark."""
-    return search_basic_planes(g_new, batch, labelling.dist, plan)
+    """Returns aff[R, V] bool — the CP-affected supersets, per landmark.
+    Runs under the span `bhl.search`."""
+    with trace.span("bhl.search"):
+        return search_basic_planes(g_new, batch, labelling.dist, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -310,10 +321,12 @@ def search_improved_planes(g_new: Graph, batch: BatchUpdate,
 def batch_search_improved(g_old: Graph, g_new: Graph, batch: BatchUpdate,
                           labelling: HighwayLabelling,
                           plan: RelaxPlan | None = None) -> torch.Tensor:
-    """Returns aff[R, V] bool ⊇ LD-affected vertices, per landmark."""
-    hub_mask = _per_plane_hub_mask(labelling, g_new.n)
-    return search_improved_planes(g_new, batch, labelling.dist, labelling.hub,
-                                  hub_mask, plan)
+    """Returns aff[R, V] bool ⊇ LD-affected vertices, per landmark.
+    Runs under the span `bhl.search`."""
+    with trace.span("bhl.search"):
+        hub_mask = _per_plane_hub_mask(labelling, g_new.n)
+        return search_improved_planes(g_new, batch, labelling.dist,
+                                      labelling.hub, hub_mask, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -330,8 +343,9 @@ def repair_base(plan: RelaxPlan | None, g_new: Graph, aff: torch.Tensor,
                 key2_g: torch.Tensor, hub_mask: torch.Tensor) -> torch.Tensor:
     """Algo-4 boundary seeds: landmark-distance bounds from *unaffected*
     neighbours (line 3), INF_KEY2 off the affected sets. [P, V]."""
-    src_aff, dst_aff = _edge_ends(g_new, aff)
-    bou_mask = g_new.valid & ~src_aff & dst_aff
+    with trace.span("bhl.edge_masks"):
+        src_aff, dst_aff = _edge_ends(g_new, aff)
+        bou_mask = g_new.valid & ~src_aff & dst_aff
     base = relax_sweep(plan, g_new, key2_g, 2, INF_KEY2, hub=hub_mask,
                        clear_bit=1, edge_mask=bou_mask)
     return torch.where(aff, base, INF_KEY2)
@@ -349,7 +363,7 @@ def repair_base_frontier(plan: RelaxPlan, g_new: Graph, aff: torch.Tensor,
     """
     rows, count = repair_base_rows(plan, aff)
     return repair_base_apply(plan, g_new, aff, key2_g, hub_mask, rows,
-                             int(count.item()))
+                             int(trace.host_read("frontier", count)))
 
 
 def repair_base_rows(plan: RelaxPlan, aff: torch.Tensor
@@ -387,8 +401,9 @@ def repair_step(plan: RelaxPlan | None, g_new: Graph, cur: torch.Tensor,
     every wave.
     """
     if int_mask is None:
-        src_aff, dst_aff = _edge_ends(g_new, aff)
-        int_mask = g_new.valid & src_aff & dst_aff
+        with trace.span("bhl.edge_masks"):
+            src_aff, dst_aff = _edge_ends(g_new, aff)
+            int_mask = g_new.valid & src_aff & dst_aff
     cand = relax_sweep(plan, g_new, cur, 2, INF_KEY2, hub=hub_mask,
                        clear_bit=1, edge_mask=int_mask)
     return torch.minimum(cur, cand)
@@ -400,45 +415,60 @@ def repair_merge(aff: torch.Tensor, settled: torch.Tensor,
     return torch.where(aff, settled, key2_g)
 
 
-def repair_planes(g_new: Graph, aff: torch.Tensor, key2_g: torch.Tensor,
+def repair_settle(g_new: Graph, aff: torch.Tensor, key2_g: torch.Tensor,
                   hub_mask: torch.Tensor,
                   plan: RelaxPlan | None = None) -> torch.Tensor:
-    """Algo-4 repair over a plane slice; returns new key2 [P, V].
+    """Algo-4 repair over a plane slice before its merge: the settled
+    key2 [P, V] on the affected sets, INF_KEY2 off them.
 
     The paper's ascending-distance wavefront is a boundary-seeded
     relaxation fixpoint: identical final values by Lemma 5.20 and
-    monotonicity.
+    monotonicity. The boundary sweep runs under the span
+    `bhl.repair_base`, the interior waves under `bhl.repair`.
     """
     frontier = use_frontier(plan, g_new)
-    base = (repair_base_frontier if frontier else repair_base)(
-        plan, g_new, aff, key2_g, hub_mask)
+    with trace.span("bhl.repair_base"):
+        base = (repair_base_frontier if frontier else repair_base)(
+            plan, g_new, aff, key2_g, hub_mask)
     WAVES["repair_base"] += 1
-    src_aff, dst_aff = _edge_ends(g_new, aff)
-    int_mask = g_new.valid & src_aff & dst_aff
-    del src_aff, dst_aff
+    with trace.span("bhl.edge_masks"):
+        src_aff, dst_aff = _edge_ends(g_new, aff)
+        int_mask = g_new.valid & src_aff & dst_aff
+        del src_aff, dst_aff
 
     def full(c):
         return repair_step(plan, g_new, c, aff, hub_mask, int_mask)
-    if frontier:
-        settled = _frontier_fixpoint(
-            "repair", plan, g_new, full,
-            lambda c, rows_g: repair_step_rows(rows_g, c, aff, hub_mask),
-            base, plan.frontier.changed_blocks(base < INF_KEY2))
-    else:
-        settled = fixpoint("repair", full, base)
-    return repair_merge(aff, settled, key2_g)
+    with trace.span("bhl.repair"):
+        if frontier:
+            return _frontier_fixpoint(
+                "repair", plan, g_new, full,
+                lambda c, rows_g: repair_step_rows(rows_g, c, aff, hub_mask),
+                base, plan.frontier.changed_blocks(base < INF_KEY2))
+        return fixpoint("repair", full, base)
+
+
+def repair_planes(g_new: Graph, aff: torch.Tensor, key2_g: torch.Tensor,
+                  hub_mask: torch.Tensor,
+                  plan: RelaxPlan | None = None) -> torch.Tensor:
+    """Algo-4 repair over a plane slice; returns new key2 [P, V]."""
+    return repair_merge(aff, repair_settle(g_new, aff, key2_g, hub_mask,
+                                           plan), key2_g)
 
 
 def batch_repair(g_new: Graph, aff: torch.Tensor,
                  labelling: HighwayLabelling,
                  plan: RelaxPlan | None = None) -> HighwayLabelling:
-    """Settle d^L_{G'} on the affected sets and rewrite labels minimally."""
+    """Settle d^L_{G'} on the affected sets and rewrite labels minimally;
+    the rewrite runs under the span `bhl.commit`."""
     hub_mask = _per_plane_hub_mask(labelling, g_new.n)
-    new_key2 = repair_planes(g_new, aff, labelling.key2(), hub_mask, plan)
-    dist = key2_dist(new_key2).clamp_max(INF_D)
-    hub = key2_hub(new_key2) & (dist < INF_D)
-    highway = dist[:, labelling.landmarks.to(torch.int64)].contiguous()
-    return HighwayLabelling(labelling.landmarks, dist, hub, highway)
+    key2_g = labelling.key2()
+    settled = repair_settle(g_new, aff, key2_g, hub_mask, plan)
+    with trace.span("bhl.commit"):
+        new_key2 = repair_merge(aff, settled, key2_g)
+        dist = key2_dist(new_key2).clamp_max(INF_D)
+        hub = key2_hub(new_key2) & (dist < INF_D)
+        highway = dist[:, labelling.landmarks.to(torch.int64)].contiguous()
+        return HighwayLabelling(labelling.landmarks, dist, hub, highway)
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,13 @@ None (the reference's "jnp" branch), and through the tiled kernel wrapper
 the GPU, its plain twin on the CPU.
 
 The reference's `lax.while_loop` fixpoints become host loops with one
-`.item()` convergence check per wave. `WAVES` counts the waves of each
-fixpoint kind, so a caller can report them (and a later change can price
-the host syncs): set it to zero, run, read.
+host read per wave, the convergence check (`trace.host_read` at site
+"fixpoint"). `WAVES` counts the waves of each fixpoint kind and
+`trace.HOST_READS` the host reads by site, so a caller can report both:
+set them to zero, run, read. With `trace.enable(True)` each fixpoint wave
+runs under the span `wave.<kind>` and its read under `read.fixpoint`;
+`prepare` runs its fingerprint and cover check under `prepare.observe`, a
+retile under `prepare.retile` and the tuner under `prepare.tune`.
 
 A plan may also carry `FrontierTiles` (`RelaxEngine(frontier=True)`): the
 batch search and repair of `core/batch.py` then relax, wave by wave, only
@@ -38,6 +42,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import autotune as tune_mod
 from repro_torch.core.labelling import sat_add
 from repro_torch.device import resolve_device
@@ -147,15 +152,18 @@ def fixpoint(kind: str, body_fn, init: torch.Tensor,
     """Iterate x <- body_fn(x) (monotone, elementwise) until unchanged, at
     most `limit` waves.
 
-    One host sync per wave. Under the reference's vmap each plane's loop
-    ends when every plane has converged; extra waves on a converged plane
-    change nothing, so one loop over [P, V] gives the same planes.
+    One host read per wave (site "fixpoint"), the wave under the span
+    `wave.<kind>`. Under the reference's vmap each plane's loop ends when
+    every plane has converged; extra waves on a converged plane change
+    nothing, so one loop over [P, V] gives the same planes.
     """
     x = init
+    name = trace.wave_span(kind)
     for _ in range(limit):
-        nx = body_fn(x)
-        WAVES[kind] += 1
-        changed = bool((nx != x).any().item())
+        with trace.span(name):
+            nx = body_fn(x)
+            WAVES[kind] += 1
+            changed = bool(trace.host_read("fixpoint", (nx != x).any()))
         x = nx
         if not changed:
             break
@@ -264,7 +272,8 @@ class RelaxEngine:
         into the same stale slot pair leave it unchanged. `prepare` checks
         that separately, against the plan's `tiled` slots.
         """
-        occupied, chk = RelaxEngine._fingerprint_terms(g).tolist()
+        occupied, chk = trace.host_read(
+            "prepare.observe", RelaxEngine._fingerprint_terms(g))
         return (g.n, g.src.shape[0], occupied, chk & 0xFFFFFFFF)
 
     def _observe(self, g: Graph) -> tuple[tuple, dict]:
@@ -276,7 +285,7 @@ class RelaxEngine:
         terms = torch.cat([self._fingerprint_terms(g)] + [
             (g.valid & ~self._plans[key].tiled).any().reshape(1)
             for key in same])
-        occupied, chk, *missed = terms.tolist()
+        occupied, chk, *missed = trace.host_read("prepare.observe", terms)
         fp = (g.n, g.src.shape[0], occupied, chk & 0xFFFFFFFF)
         return fp, dict(zip(same, map(bool, missed)))
 
@@ -305,7 +314,9 @@ class RelaxEngine:
         fingerprint-keyed LRU: a snapshot whose slots match a cached tiling,
         and whose live slots it all holds, reuses it (`plan_cache_hits`);
         a key match that misses a live slot retiles and replaces the entry.
-        One host sync per call, none for an unverified vouch.
+        One host read per call (site "prepare.observe"), none for an
+        unverified vouch; a retile pulls the slot arrays (site
+        "prepare.retile").
         """
         if g.device != self.device:
             raise ValueError(f"graph is on {g.device}, engine on "
@@ -314,7 +325,8 @@ class RelaxEngine:
         if self._plan is not None and not topology_changed \
                 and not verify_cache:
             return self._plan
-        fp, uncovered = self._observe(g)
+        with trace.span("prepare.observe"):
+            fp, uncovered = self._observe(g)
         if self._plan is not None and not topology_changed:
             current = next(k for k, p in self._plans.items()
                            if p is self._plan)
@@ -329,24 +341,8 @@ class RelaxEngine:
             key += ("frontier", self.frontier_block, self.frontier_threshold)
         plan = self._plans.pop(key, None)
         if plan is None or uncovered.get(key, True):
-            # Host sync: pull the slot arrays once per topology change and
-            # tile only the occupied slots.
-            src, dst = g.src.cpu().numpy(), g.dst.cpu().numpy()
-            keep = g.valid.cpu().numpy()
-            ft = (er_ops.prepare_frontier(
-                      src, dst, keep, g.n, self.frontier_block,
-                      threshold=self.frontier_threshold, device=self.device)
-                  if self.frontier else None)
-            if cfg is not None and cfg.impl == "sorted":
-                plan = RelaxPlan(None, ft, g.valid.clone(),
-                                 sorted_tiles=er_ops.prepare_sorted(
-                                     src, dst, keep, g.n, device=self.device),
-                                 impl="sorted")
-            else:
-                shards = cfg.tile_shards if cfg else self.shards
-                plan = RelaxPlan(er_ops.prepare_topology(
-                    src, dst, keep, g.n, self.block_v, shards, self.block_e,
-                    device=self.device), ft, g.valid.clone())
+            with trace.span("prepare.retile"):
+                plan = self._retile(g, cfg)
             self.retile_count += 1
         else:
             self.plan_cache_hits += 1
@@ -355,6 +351,27 @@ class RelaxEngine:
             self._plans.pop(next(iter(self._plans)))
         self._plan, self._fingerprint = plan, fp
         return plan
+
+    def _retile(self, g: Graph, cfg: "tune_mod.TuneConfig | None"
+                ) -> RelaxPlan:
+        """A new plan for g: pull the slot arrays to the host once and
+        tile only the occupied slots."""
+        src = trace.host_array("prepare.retile", g.src)
+        dst = trace.host_array("prepare.retile", g.dst)
+        keep = trace.host_array("prepare.retile", g.valid)
+        ft = (er_ops.prepare_frontier(
+                  src, dst, keep, g.n, self.frontier_block,
+                  threshold=self.frontier_threshold, device=self.device)
+              if self.frontier else None)
+        if cfg is not None and cfg.impl == "sorted":
+            return RelaxPlan(None, ft, g.valid.clone(),
+                             sorted_tiles=er_ops.prepare_sorted(
+                                 src, dst, keep, g.n, device=self.device),
+                             impl="sorted")
+        shards = cfg.tile_shards if cfg else self.shards
+        return RelaxPlan(er_ops.prepare_topology(
+            src, dst, keep, g.n, self.block_v, shards, self.block_e,
+            device=self.device), ft, g.valid.clone())
 
     def _ensure_tuned(self, g: Graph) -> "tune_mod.TuneConfig | None":
         """Resolve (and adopt) the tuned config for g's shape.
@@ -369,8 +386,9 @@ class RelaxEngine:
         key = tune_mod.table_key(g.n, int(g.src.shape[0]), self.shards)
         cfg = self.tune_table.get(key)
         if cfg is None:
-            result = tune_mod.tune(g, shards=self.shards,
-                                   block_v=self.block_v)
+            with trace.span("prepare.tune"):
+                result = tune_mod.tune(g, shards=self.shards,
+                                       block_v=self.block_v)
             self.tune_table.put(key, result)
             self.tune_count += 1
             self.last_tune = result

@@ -5,12 +5,15 @@ product d⊤[q] = min_{i,j} L[i, s_q] + H[i, j] + L[j, t_q], through the
 `minplus` kernel when `use_kernel` (the default on the GPU) and through
 plain PyTorch otherwise. The BiBFS runs all queries of a batch as planes
 of one relaxation sweep per wave (`core/engine.py`), with a host check
-per wave where the reference has a `lax.while_loop`.
+per wave where the reference has a `lax.while_loop`. With
+`trace.enable(True)` the bound runs under the span `query.bound` and the
+search under `query.bibfs` (`repro_torch/trace.py`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.engine import WAVES, RelaxPlan, relax_sweep
 from repro_torch.core.labelling import HighwayLabelling, landmark_onehot
 from repro_torch.graphs.coo import INF_D, Graph
@@ -52,18 +55,19 @@ def query_upper_bound(labelling: HighwayLabelling, s: torch.Tensor,
     CUDA kernel on the GPU), which clamps at INF32 = 2^29 like the
     reference's Pallas kernel; False is the reference's jnp contraction,
     clamped at INF_D. None picks the kernel on the GPU. `batched_query`'s
-    answers are the same either way.
+    answers are the same either way. Runs under the span `query.bound`.
     """
-    lab = effective_labels(labelling)
-    s_lab = lab[:, s.to(torch.int64)].T.clamp_max(INF_D).contiguous()
-    t_lab = lab[:, t.to(torch.int64)].T.clamp_max(INF_D).contiguous()
-    if use_kernel is None:
-        use_kernel = lab.device.type == "cuda"
-    if use_kernel:
-        return minplus_ops.minplus_bound(
-            s_lab, labelling.highway.contiguous(), t_lab)
-    mid = (s_lab[:, :, None] + labelling.highway[None, :, :]).amin(dim=1)
-    return (mid + t_lab).amin(dim=1).clamp_max(INF_D)
+    with trace.span("query.bound"):
+        lab = effective_labels(labelling)
+        s_lab = lab[:, s.to(torch.int64)].T.clamp_max(INF_D).contiguous()
+        t_lab = lab[:, t.to(torch.int64)].T.clamp_max(INF_D).contiguous()
+        if use_kernel is None:
+            use_kernel = lab.device.type == "cuda"
+        if use_kernel:
+            return minplus_ops.minplus_bound(
+                s_lab, labelling.highway.contiguous(), t_lab)
+        mid = (s_lab[:, :, None] + labelling.highway[None, :, :]).amin(dim=1)
+        return (mid + t_lab).amin(dim=1).clamp_max(INF_D)
 
 
 def bounded_bibfs(g: Graph, landmarks: torch.Tensor, s: torch.Tensor,
@@ -85,54 +89,63 @@ def bounded_bibfs(g: Graph, landmarks: torch.Tensor, s: torch.Tensor,
     The s side expands over `g` with `plan`, the t side over `rev` with
     `plan_rev` (default: the same); the directed variant passes the
     reversed arcs there. Waves count under `WAVES[kind]`.
+
+    One host read before each wave (site "query.bibfs": go on, and which
+    side), and one more that ends the loop unless `max_steps` binds. The
+    search runs under the span `query.bibfs`, each wave after its read
+    under `query.bibfs.wave`.
     """
-    if rev is None:
-        rev, plan_rev = g, plan
-    n = g.n
-    b = s.shape[0]
-    dev = g.device
-    s, t = s.to(torch.int64), t.to(torch.int64)
-    blocked = landmark_onehot(landmarks, n)
-    rows = torch.arange(b, device=dev)
+    with trace.span("query.bibfs"):
+        if rev is None:
+            rev, plan_rev = g, plan
+        n = g.n
+        b = s.shape[0]
+        dev = g.device
+        s, t = s.to(torch.int64), t.to(torch.int64)
+        blocked = landmark_onehot(landmarks, n)
+        rows = torch.arange(b, device=dev)
 
-    def seeded(x: torch.Tensor) -> torch.Tensor:
-        d = torch.full((b, n), INF_D, dtype=torch.int32, device=dev)
-        d[rows, x] = 0
-        # A landmark endpoint never expands (searches run on G[V\R]).
-        return torch.where(~blocked[x][:, None], d, INF_D)
+        def seeded(x: torch.Tensor) -> torch.Tensor:
+            d = torch.full((b, n), INF_D, dtype=torch.int32, device=dev)
+            d[rows, x] = 0
+            # A landmark endpoint never expands (searches run on G[V\R]).
+            return torch.where(~blocked[x][:, None], d, INF_D)
 
-    ds, dt = seeded(s), seeded(t)
-    # Smallest live edge weight for the termination bound, clipped to
-    # [1, 2^20] so (ls+lt+1)·wmin stays far from int32 wrap.
-    wmin = (torch.where(g.valid, g.w, INF_D).amin() if g.w.numel()
-            else torch.tensor(INF_D, device=dev)).clamp(1, 1 << 20)
+        ds, dt = seeded(s), seeded(t)
+        # Smallest live edge weight for the termination bound, clipped to
+        # [1, 2^20] so (ls+lt+1)·wmin stays far from int32 wrap.
+        wmin = (torch.where(g.valid, g.w, INF_D).amin() if g.w.numel()
+                else torch.tensor(INF_D, device=dev)).clamp(1, 1 << 20)
 
-    def expand(dx: torch.Tensor, og: Graph,
-               og_plan: RelaxPlan | None) -> torch.Tensor:
-        cand = relax_sweep(og_plan, og, dx, 1, INF_D)
-        cand = torch.where(blocked[None, :], INF_D, cand)
-        return torch.minimum(dx, cand)
+        def expand(dx: torch.Tensor, og: Graph,
+                   og_plan: RelaxPlan | None) -> torch.Tensor:
+            cand = relax_sweep(og_plan, og, dx, 1, INF_D)
+            cand = torch.where(blocked[None, :], INF_D, cand)
+            return torch.minimum(dx, cand)
 
-    def best_meet(ds: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
-        return (ds + dt).clamp_max(INF_D).amin(dim=1)
+        def best_meet(ds: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
+            return (ds + dt).clamp_max(INF_D).amin(dim=1)
 
-    ls = lt = 0
-    fs, ft = (ds == 0).sum(), (dt == 0).sum()
-    best = best_meet(ds, dt)
-    for _ in range(max_steps):
-        can_improve = ((ls + lt + 1) * wmin < torch.minimum(best, bound)).any()
-        go, expand_s = torch.stack([can_improve, fs <= ft]).tolist()
-        if not go:
-            break
-        if expand_s:
-            nd = expand(ds, g, plan)
-            ds, fs, ls = nd, (nd != ds).sum(), ls + 1
-        else:
-            nd = expand(dt, rev, plan_rev)
-            dt, ft, lt = nd, (nd != dt).sum(), lt + 1
-        WAVES[kind] += 1
-        best = torch.minimum(best, best_meet(ds, dt))
-    return best
+        ls = lt = 0
+        fs, ft = (ds == 0).sum(), (dt == 0).sum()
+        best = best_meet(ds, dt)
+        for _ in range(max_steps):
+            can_improve = ((ls + lt + 1) * wmin
+                           < torch.minimum(best, bound)).any()
+            go, expand_s = trace.host_read(
+                "query.bibfs", torch.stack([can_improve, fs <= ft]))
+            if not go:
+                break
+            with trace.span("query.bibfs.wave"):
+                if expand_s:
+                    nd = expand(ds, g, plan)
+                    ds, fs, ls = nd, (nd != ds).sum(), ls + 1
+                else:
+                    nd = expand(dt, rev, plan_rev)
+                    dt, ft, lt = nd, (nd != dt).sum(), lt + 1
+                WAVES[kind] += 1
+                best = torch.minimum(best, best_meet(ds, dt))
+        return best
 
 
 def batched_query(g: Graph, labelling: HighwayLabelling, s: torch.Tensor,

@@ -26,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.device import resolve_device
 
 # Large-but-safe int32 infinity for distances (headroom for +w relaxations).
@@ -152,7 +153,7 @@ def batch_requirements(g: Graph, b: BatchUpdate) -> tuple[int, int]:
     match), plus the batch's valid insertions; re-weights take no slot.
     `required_n` is one past the largest vertex id a valid row touches
     (0 for a batch with no valid row). The counts are formed on the device
-    and read in one host sync.
+    and read in one host sync (site "batch_requirements").
     """
     valid = b.valid
     n_ins = ((~b.is_del) & (~b.is_rew) & valid).sum()
@@ -160,8 +161,9 @@ def batch_requirements(g: Graph, b: BatchUpdate) -> tuple[int, int]:
                      _canon_key(b.src, b.dst, b.is_del & valid)) & g.valid
     top = torch.where(valid, torch.maximum(b.src, b.dst), -1)
     top = top.max() if top.numel() else top.new_tensor(-1)
-    occupied, freed, n_ins, top = torch.stack(
-        [g.valid.sum(), hit.sum(), n_ins, top.to(torch.int64)]).tolist()
+    occupied, freed, n_ins, top = trace.host_read(
+        "batch_requirements",
+        torch.stack([g.valid.sum(), hit.sum(), n_ins, top.to(torch.int64)]))
     return occupied // 2 - freed // 2 + n_ins, top + 1
 
 
