@@ -5,8 +5,8 @@
 
 1. Prints the card (name, power limit), torch and CUDA versions, and
    builds every CUDA kernel in `build.SOURCES` (relax sweep, min-plus,
-   legacy edge relax, embedding bag) from `src/repro_torch/csrc/` with
-   nvcc, one process each, all at once.
+   legacy edge relax, embedding bag, seed match) from
+   `src/repro_torch/csrc/` with nvcc, one process each, all at once.
 2. Holds each kernel to its plain PyTorch version on the card: the three
    integer kernels with `torch.equal`, the embedding bag to rtol = atol =
    1e-5 (float32 sums in another order), over each kernel's edge cases
@@ -64,7 +64,12 @@
    table, bags of 50, batches of 512 and 65,536), beside
    `torch.nn.functional.embedding_bag` as the library yardstick, with its
    own device microseconds under the profiler beside the launch floor
-   and the launch geometry `embed_bag_geometry` chose. Each of
+   and the launch geometry `embed_bag_geometry` chose; the seed weights'
+   slot match (`kernels/seed_match`) at the update cells' slot counts,
+   2^24 and 2^25, with U = 1,024 row keys of live slots, equal to its
+   plain version, one launch a call, beside its needed-bytes bound (src
+   and dst of every slot, valid and w of the matched ones) and the bound
+   of 13 bytes a slot (src, dst, w, valid of every slot). Each of
    those two entry points is its kernel's path: its count is set to 0
    just before the call and read just after. Every profiler pass must
    record each hand-written kernel as often as its wrapper launched it
@@ -245,8 +250,9 @@
    its FLOPs pass on meta tensors for one cell per family.
 15. Prints a `summary:` line with every number above as JSON (each
    phase's wall seconds under `phase_s`, also logged as each phase
-   ends), the `{"kernels": [...]}` line (kernel A's and B's launches are
-   run A's), the card line, and last `{"ok": true, "device": {...}}`.
+   ends), the `{"kernels": [...]}` line (kernel A's, B's and the seed
+   match's launches are run A's), the card line, and last `{"ok": true,
+   "device": {...}}`.
 
 Exits nonzero, printing no result, without a CUDA device or if any phase
 fails. Imports nothing of JAX or of the JAX package `repro`.
@@ -291,6 +297,10 @@ MIND_ITEMS = 10_485_760
 MIND_DIM = 64
 MIND_HIST = 50
 MIND_BATCHES = (512, 65_536)   # serve_p99, train_batch
+# The update cells' slot counts (perfbench's `ba20`, capacity 2^23 edges;
+# `kron20`, 2^24) and rows a batch, for the seed match's timing.
+SEED_MATCH_SLOTS = (1 << 24, 1 << 25)
+SEED_MATCH_ROWS = 1024
 BAG_TOL = 1e-5
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
@@ -351,15 +361,19 @@ def reset_launches() -> None:
     from repro_torch.kernels.edge_relax import kernel as rk
     from repro_torch.kernels.embed_bag import kernel as ek
     from repro_torch.kernels.minplus import kernel as mk
+    from repro_torch.kernels.seed_match import kernel as sk
     rk.launches = rk.launches_edge_relax = mk.launches = ek.launches = 0
+    sk.launches = 0
 
 
 def read_launches() -> dict:
     from repro_torch.kernels.edge_relax import kernel as rk
     from repro_torch.kernels.embed_bag import kernel as ek
     from repro_torch.kernels.minplus import kernel as mk
+    from repro_torch.kernels.seed_match import kernel as sk
     return {"relax_sweep": rk.launches, "minplus": mk.launches,
-            "edge_relax": rk.launches_edge_relax, "embed_bag": ek.launches}
+            "edge_relax": rk.launches_edge_relax, "embed_bag": ek.launches,
+            "seed_match": sk.launches}
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -372,7 +386,7 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
 #: check, and its wrapper's count in `read_launches`.
 COUNTED = {"relax_sweep_kernel": "relax_sweep", "minplus_kernel": "minplus",
            "edge_relax_kernel": "edge_relax",
-           "embed_bag_kernel": "embed_bag"}
+           "embed_bag_kernel": "embed_bag", "seed_match_kernel": "seed_match"}
 PROFILER_TRIES = 3
 #: Profiler passes that recorded fewer device kernels than were launched,
 #: each discarded and run again (see `device_kernels`).
@@ -1126,6 +1140,56 @@ def time_embed_bag(torch, dev, floor_us: float) -> list:
     return rows
 
 
+def time_seed_match(torch, dev) -> list:
+    """The seed weights' slot match at each of SEED_MATCH_SLOTS slots
+    (undirected pairs of BA's |V|, half of them live) with
+    SEED_MATCH_ROWS row keys of live slots, as a deletion batch's: equal
+    to its plain version, one launch a call, then by CUDA events in turns
+    with it, beside the bound of the bytes it needs (8 a slot, 5 more a
+    slot whose key is a row's) and that of 13 bytes a slot."""
+    from repro_torch.kernels.seed_match import kernel as sk
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for e2 in SEED_MATCH_SLOTS:
+        a, b = torch.randint(0, N, (2, e2 // 2), generator=gen, device=dev,
+                             dtype=torch.int32)
+        src = torch.stack([a, b], 1).reshape(-1)
+        dst = torch.stack([b, a], 1).reshape(-1)
+        valid = torch.rand(e2, generator=gen, device=dev) < 0.5
+        w = torch.randint(1, 9, (e2,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        live = valid.nonzero().flatten()
+        pick = live[torch.randint(0, live.numel(), (SEED_MATCH_ROWS,),
+                                  generator=gen, device=dev)]
+        keys, _ = torch.sort(sk.slot_key(src[pick], dst[pick], "pair"))
+        args = (src, dst, valid, w, keys, "pair")
+        sk.launches = 0
+        got = sk.seed_match(*args)
+        want = sk.seed_match_plain(*args)
+        torch.cuda.synchronize()
+        if sk.launches != 1 or not torch.equal(got, want):
+            raise AssertionError(f"seed_match != plain at {e2} slots "
+                                 f"(launches {sk.launches})")
+        ms, plain = paired_ms(lambda: sk.seed_match(*args),
+                              lambda: sk.seed_match_plain(*args), 50, 3)
+        matched = int(torch.isin(sk.slot_key(src, dst, "pair"), keys).sum())
+        bms, by = bound_ms(8 * e2 + 5 * matched, 0)
+        row = dict(slots=e2, rows=SEED_MATCH_ROWS, matched_slots=matched,
+                   ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                   bound_13b_ms=13 * e2 / HBM_BYTES_PER_S * 1e3,
+                   geometry=dataclasses.asdict(sk.seed_match_geometry(
+                       SEED_MATCH_ROWS, e2, torch.cuda.get_device_properties(
+                           dev).multi_processor_count)),
+                   max_abs_err=0)
+        rows.append(row)
+        log(f"seed_match {e2} slots, U={SEED_MATCH_ROWS} ({matched} matched "
+            f"slots): kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+            f"{bms:.4f} ms ({by}, {100 * bms / ms:.1f} %), 13 B a slot "
+            f"{row['bound_13b_ms']:.4f} ms; geometry {row['geometry']}")
+        del a, b, src, dst, valid, w, live, pick, keys, args, got, want
+    return rows
+
+
 # --- phase 6: the serving loop at full width ----------------------------------
 
 SERVE_BATCHES = 3
@@ -1364,7 +1428,8 @@ def run_serve(torch, np, dev, g0, lab0, batch, full, trickle, fr) -> dict:
                   ckpt_dir=str(SERVE_DIR / "a"))
     out["pipeline"]["launches"] = launches = read_launches()
     out["pipeline"]["waves"] = dict(teng.WAVES)
-    if launches["relax_sweep"] <= 0 or launches["minplus"] <= 0:
+    if min(launches[k] for k in ("relax_sweep", "minplus", "seed_match")) \
+            <= 0:
         raise AssertionError(f"the serve loop skipped a kernel: {launches}")
     rep_b = serve("sync", keep_history=True)
     same_snapshot(torch, rep_b.final, rep_a.final, "sync vs pipeline")
@@ -3737,7 +3802,7 @@ def main() -> int:
     answers = torch.cat(answers)
     bibfs_waves = teng.WAVES["bibfs"]
     launches = {k: v for k, v in read_launches().items()
-                if k in ("relax_sweep", "minplus")}
+                if k in ("relax_sweep", "minplus", "seed_match")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     q_sorted = sorted(mb_ms)
     log(f"queries: {len(answers)} in {len(mb_ms)} microbatches of "
@@ -3951,6 +4016,7 @@ def main() -> int:
     er_tilings = [time_edge_relax(torch, dev, g1, lab1, bv)
                   for bv in EDGE_RELAX_TILINGS]
     bag_rows = time_embed_bag(torch, dev, floor_us)
+    seed_rows = time_seed_match(torch, dev)
     clock.done("5")
 
     # --- 6. the serving loop at full width ------------------------------------
@@ -4019,6 +4085,14 @@ def main() -> int:
              bound_ms=bag_rows[-1]["bound_ms"],
              bound_by=bag_rows[-1]["bound_by"],
              library_ms=bag_rows[-1]["library_ms"]),
+        dict(name="seed_match", route="cuda",
+             source="src/repro_torch/csrc/seed_match.cu",
+             replaces=None,   # the reference matches in jnp
+             launches=serve["pipeline"]["launches"]["seed_match"],
+             max_abs_err=0, ms=seed_rows[0]["ms"],
+             plain_ms=seed_rows[0]["plain_ms"],
+             bound_ms=seed_rows[0]["bound_ms"],
+             bound_by=seed_rows[0]["bound_by"], library_ms=None),
     ]
     summary = dict(card=card, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s,
@@ -4033,6 +4107,7 @@ def main() -> int:
                    one_block_update=one_block, query_profile=q_prof,
                    minplus=mp_rows, frontier=frontier, edge_relax=er_row,
                    edge_relax_tilings=er_tilings, embed_bag=bag_rows,
+                   seed_match=seed_rows,
                    serve=serve, directed=directed, autotune=autotune,
                    replica=replica_tier, sharded=sharded, mind=mind_row,
                    gnn=gnn_row, sampler=sampler_row, lm=lm_row,

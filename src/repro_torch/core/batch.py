@@ -17,7 +17,8 @@ Variants (paper §7 naming):
   UHL⁺  = BHL⁺ one update at a time (`uhl_update`)
 
 With `trace.enable(True)` (`repro_torch/trace.py`) an update's stages run
-under the spans `bhl.search`, `bhl.repair_base`, `bhl.edge_masks` (each
+under the spans `bhl.seed_weights` (`batchhl_update`'s seed weights),
+`bhl.search`, `bhl.repair_base`, `bhl.edge_masks` (each
 derivation of the [P, E2] edge masks), `bhl.repair` and `bhl.commit`, and
 each frontier wave under `wave.<kind>`; the frontier mode's host reads
 count at site "frontier".
@@ -492,7 +493,8 @@ def batchhl_update(g_old: Graph, batch: BatchUpdate,
         g_new = apply_batch(g_old, batch)
     # Seeds for deletions / re-weights cross the edge at its pre-update
     # weight (resp. min of old/new), resolved against g_old.
-    batch = resolve_seed_weights(g_old, batch)
+    with trace.span("bhl.seed_weights"):
+        batch = resolve_seed_weights(g_old, batch)
     search = batch_search_improved if improved else batch_search_basic
     aff = search(g_old, g_new, batch, labelling, plan)
     new_labelling = batch_repair(g_new, aff, labelling, plan)

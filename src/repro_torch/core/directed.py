@@ -48,6 +48,7 @@ from repro_torch.core.query import bounded_bibfs, effective_labels
 from repro_torch.device import resolve_device
 from repro_torch.graphs.coo import (INF_D, BatchUpdate, Graph, _first_match,
                                     resolve_seed_weights)
+from repro_torch.kernels.seed_match import kernel as seed_match
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,13 +90,8 @@ def from_arcs(n: int, arcs: np.ndarray, capacity: int, *,
 
 def _arc_key(a: torch.Tensor, b: torch.Tensor,
              keep: torch.Tensor | None = None) -> torch.Tensor:
-    """int64 key of the arc (a, b); (-1, -1) off `keep`. Injective over all
-    int32 pairs: b spans 2^32 values under a·2^32."""
-    a, b = a.to(torch.int64), b.to(torch.int64)
-    if keep is not None:
-        a = torch.where(keep, a, -1)
-        b = torch.where(keep, b, -1)
-    return a * (1 << 32) + b
+    """int64 key of the arc (a, b); (-1, -1) off `keep`."""
+    return seed_match.slot_key(a, b, "arc", keep)
 
 
 def apply_batch_directed(g: DirectedGraph, b: BatchUpdate) -> DirectedGraph:
@@ -141,7 +137,7 @@ def resolve_seed_weights_directed(g_old: DirectedGraph,
     """Directed twin of `coo.resolve_seed_weights`, by exact arc: deletions
     seed at the arc's pre-update weight, re-weights at min(old, new),
     insertions at the batch's weight."""
-    return resolve_seed_weights(g_old, b, key=_arc_key)
+    return resolve_seed_weights(g_old, b, directed=True)
 
 
 @dataclasses.dataclass(frozen=True)

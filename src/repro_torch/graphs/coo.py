@@ -15,9 +15,11 @@ canonical int64 key of its (min, max) endpoints, and the matches are a
 `torch.isin` or a sort of the batch plus a `searchsorted` of the slots —
 with the same answers: `any` for deletions over every slot, the *first*
 matching row for re-weights, the *max* live weight for seed weights, and
-(-1, -1) as the key of a masked row. Inserts go to the same first-free
-slot pairs as the reference, and writes that the reference drops
-(`mode="drop"`) land on a scratch slot past the end that is cut away.
+(-1, -1) as the key of a masked row; the seed weights' slot match is one
+pass over the slots (`kernels/seed_match`, a CUDA kernel on the card).
+Inserts go to the same first-free slot pairs as the reference, and writes
+that the reference drops (`mode="drop"`) land on a scratch slot past the
+end that is cut away.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import torch
 
 from repro_torch import trace
 from repro_torch.device import resolve_device
+from repro_torch.kernels.seed_match import ops as seed_match
+from repro_torch.kernels.seed_match.kernel import slot_key
 
 # Large-but-safe int32 infinity for distances (headroom for +w relaxations).
 INF_D = 1 << 28
@@ -198,16 +202,8 @@ def make_batch(updates, pad_to: int | None = None, *,
 
 def _canon_key(a: torch.Tensor, b: torch.Tensor,
                keep: torch.Tensor | None = None) -> torch.Tensor:
-    """int64 key of the undirected pair (min, max); (-1, -1) off `keep`.
-
-    Injective over all int32 pairs: hi spans 2^32 values under lo·2^32.
-    """
-    lo = torch.minimum(a, b).to(torch.int64)
-    hi = torch.maximum(a, b).to(torch.int64)
-    if keep is not None:
-        lo = torch.where(keep, lo, -1)
-        hi = torch.where(keep, hi, -1)
-    return lo * (1 << 32) + hi
+    """int64 key of the undirected pair (min, max); (-1, -1) off `keep`."""
+    return slot_key(a, b, "pair", keep)
 
 
 def _first_match(row_keys: torch.Tensor, slot_keys: torch.Tensor
@@ -280,7 +276,7 @@ def apply_batch(g: Graph, b: BatchUpdate) -> Graph:
 
 
 def resolve_seed_weights(g_old: Graph, b: BatchUpdate, *,
-                         key=None) -> BatchUpdate:
+                         directed: bool = False) -> BatchUpdate:
     """Replace `b.w` with the *seed* weight of each row against G (pre-update).
 
     Insert: the new edge's weight; delete: the removed edge's weight in G;
@@ -288,24 +284,18 @@ def resolve_seed_weights(g_old: Graph, b: BatchUpdate, *,
     slots that match the row, and 1 when none does (unmatched rows are
     no-ops in `apply_batch` anyway). Padding rows get 1.
 
-    `key(a, b, keep=None)` is the int64 slot/row key a match compares:
-    the canonical undirected pair by default; the directed variant passes
-    its exact-arc key.
+    A row matches a slot by the canonical undirected pair; `directed`
+    matches by the exact arc instead (`core/directed.py`). The slot side is
+    one pass over the slots (`kernels/seed_match`).
     """
-    key = _canon_key if key is None else key
     u_slots = b.src.shape[0]
     if u_slots == 0:
         return b
+    key = "arc" if directed else "pair"
     need_old = (b.is_del | b.is_rew) & b.valid
-    row_key = key(b.src, b.dst, need_old)
-    sorted_k, _ = torch.sort(row_key)
-    g_key = key(g_old.src, g_old.dst)
-    pos = torch.searchsorted(sorted_k, g_key).clamp_max(u_slots - 1)
-    m = (sorted_k[pos] == g_key) & g_old.valid
-    # Max live weight per distinct key, at the key's first sorted position.
-    acc = torch.zeros(u_slots + 1, dtype=torch.int32, device=b.src.device)
-    acc.scatter_reduce_(0, torch.where(m, pos, u_slots), g_old.w, "amax")
-    w_old = acc[torch.searchsorted(sorted_k, row_key)]
+    w_old = seed_match.max_live_weight(
+        g_old.src, g_old.dst, g_old.valid, g_old.w,
+        slot_key(b.src, b.dst, key, need_old), key)
     w_old = torch.where(w_old == 0, 1, w_old)
     w_eff = torch.where(b.is_del, w_old,
                         torch.where(b.is_rew, torch.minimum(w_old, b.w), b.w))

@@ -11,6 +11,7 @@ import: the CPU tests import every module on a machine without `nvcc`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -18,9 +19,12 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("relax_sweep", "minplus", "edge_relax", "embed_bag")
+SOURCES = ("relax_sweep", "minplus", "edge_relax", "embed_bag",
+           "seed_match")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -78,10 +82,12 @@ def build(names=SOURCES) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `csrc/<name>.cu`, built first if needed, with
+    every other source of SOURCES not built yet, all at once: a program's
+    first launches then wait for one build, not one each."""
     lib = _libs.get(name)
     if lib is None:
-        build((name,))
+        build(SOURCES if name in SOURCES else (name,))
         lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
 
@@ -100,3 +106,10 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _funcs[name, symbol] = fn
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index`, which launch geometries take;
+    read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

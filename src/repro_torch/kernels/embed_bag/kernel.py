@@ -106,11 +106,6 @@ def embed_bag_geometry(b: int, l: int, d: int, sm_count: int,
                             per_warp=per_warp)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 9 \
     + [ctypes.c_void_p]
 
@@ -140,7 +135,7 @@ def embed_bag(table: torch.Tensor, idx: torch.Tensor,
         raise ValueError("embed_bag tensors must be contiguous")
     (n, d), (b, l) = table.shape, idx.shape
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
-    geo = embed_bag_geometry(b, l, d, _sm_count(table.device.index),
+    geo = embed_bag_geometry(b, l, d, build.sm_count(table.device.index),
                              table.data_ptr() % 16 == 0)
     err = build.function("embed_bag", "embed_bag_launch", _ARGTYPES)(
         table.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), n, d,

@@ -25,6 +25,7 @@ import torch
 from repro_torch import api
 from repro_torch.core.engine import WAVES, RelaxEngine
 from repro_torch.core.labelling import INF_KEY2
+from repro_torch.graphs import coo
 from repro_torch.graphs import generators as gen
 from repro_torch.graphs.coo import INF_D
 from repro_torch.kernels.edge_relax import kernel as rk
@@ -33,6 +34,7 @@ from repro_torch.kernels.edge_relax import ref as rref
 from repro_torch.kernels.embed_bag import kernel as ek
 from repro_torch.kernels.embed_bag import ops as eops
 from repro_torch.kernels.minplus import kernel as mk
+from repro_torch.kernels.seed_match import kernel as sk
 
 import _kernel_cases as kcases
 import _sweep_cases as cases
@@ -129,6 +131,108 @@ def test_minplus_kernel_matches_plain(dev, name):
     assert mk.launches == before + (s.shape[0] > 0)
     assert torch.equal(got, mk.minplus_plain(s, h, t))
 
+
+
+def _seed_inputs(dev, e2: int, n: int, u: int, key: str, seed: int,
+                 hi: bool = False):
+    """Slots of undirected pairs (both directions), 5 % of the pairs
+    copied over others (parallel slots), 45 % dead, weights up to 2^20;
+    U row keys drawn from the slots (an eighth of them shifted to keys no
+    slot has, a tenth masked to (-1, -1)), sorted. `hi` puts the vertex
+    ids just below 2^31 − 1."""
+    rng = np.random.default_rng(seed)
+    a, b = rng.integers(0, n, e2 // 2), rng.integers(0, n, e2 // 2)
+    if hi:
+        a, b = 2**31 - 1 - a, 2**31 - 1 - b
+    src = np.stack([a, b], 1).reshape(-1).astype(np.int32)
+    dst = np.stack([b, a], 1).reshape(-1).astype(np.int32)
+    pairs = e2 // 2
+    to, frm = rng.integers(0, pairs, (2, pairs // 20))
+    for col in (src, dst):
+        col.reshape(-1, 2)[to] = col.reshape(-1, 2)[frm]
+    if e2 % 2:
+        src, dst = np.append(src, src[:1]), np.append(dst, dst[:1])
+    valid = rng.random(e2) < 0.55
+    w = rng.integers(1, 2**20, e2).astype(np.int32)
+    t = [torch.from_numpy(x).to(dev) for x in (src, dst, valid, w)]
+    pick = torch.from_numpy(rng.integers(0, e2, u)).to(dev)
+    row_dst = t[1][pick].clone()
+    row_dst[: u // 8] -= 1
+    keep = torch.from_numpy(rng.random(u) >= 0.1).to(dev)
+    keys, _ = torch.sort(sk.slot_key(t[0][pick], row_dst, key, keep))
+    return t, keys
+
+
+def _seed_equal(t, keys, key) -> torch.Tensor:
+    before = sk.launches
+    got = sk.seed_match(*t, keys, key)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 1
+    want = sk.seed_match_plain(*t, keys, key)
+    assert torch.equal(got, want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hi", [False, True])
+@pytest.mark.parametrize("u", [1, 1024, sk.SEED_MATCH_MAX_SHARED_KEYS,
+                               sk.SEED_MATCH_MAX_SHARED_KEYS + 1, 40_000])
+@pytest.mark.parametrize("key", sk.KEYS)
+def test_seed_match_kernel_matches_plain(dev, key, u, hi):
+    """The slot match bit for bit against its plain version, one launch a
+    call: both key kinds, U on both sides of the shared-memory limit
+    (`seed_match_geometry`), E2 = 2^20 + 6 (a tail past the groups of
+    four), vertex ids near 2^31 − 1; then the slots one element in, where
+    src and dst are not 16-byte aligned (every slot one at a time)."""
+    t, keys = _seed_inputs(dev, 2**20 + 6, 4096, u, key, u, hi)
+    assert sk.seed_match_geometry(u, 2**20 + 6, 132).shared_keys == (
+        u <= sk.SEED_MATCH_MAX_SHARED_KEYS)
+    want = _seed_equal(t, keys, key)
+    assert int((want > 0).sum()) >= u // 4
+    _seed_equal([x[1:] for x in t], keys, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hi", [False, True])
+@pytest.mark.parametrize("key", sk.KEYS)
+def test_seed_match_kernel_at_update_scale(dev, key, hi):
+    """E2 = 2^24 slots (`ba20`'s) with parallel and dead slots, U = 1,024:
+    bit for bit against the plain version, one launch."""
+    t, keys = _seed_inputs(dev, 2**24, 2**20, 1024, key, 31, hi)
+    _seed_equal(t, keys, key)
+
+
+@pytest.mark.cuda
+def test_seed_match_kernel_unknown_key_raises(dev):
+    t, keys = _seed_inputs(dev, 64, 8, 4, "pair", 1)
+    before = sk.launches
+    with pytest.raises(ValueError, match="key must be one of"):
+        sk.seed_match(*t, keys, "both")
+    assert sk.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("directed", [False, True])
+def test_resolve_seed_weights_on_card_equals_cpu(dev, directed):
+    """`resolve_seed_weights` on the card (one kernel launch) equals the
+    CPU's on a BA graph under a mixed batch with padding rows."""
+    from repro_torch.core import directed as tdir
+    n = 5000
+    edges = gen.barabasi_albert(n, 4, seed=3)
+    ups = gen.random_batch_updates(edges, n, n_ins=50, n_del=300, seed=4,
+                                   n_rew=100, max_weight=9)
+    out = []
+    for where in (torch.device("cpu"), dev):
+        if directed:
+            g = tdir.from_arcs(n, edges, len(edges) + 64, device=where)
+        else:
+            g = coo.from_edges(n, edges, len(edges) + 64, device=where)
+        b = coo.make_batch(ups, pad_to=512, device=where)
+        before = sk.launches
+        got = coo.resolve_seed_weights(g, b, directed=directed)
+        assert sk.launches == before + (where.type == "cuda")
+        out.append(got.w.cpu())
+    assert torch.equal(*out)
 
 @pytest.mark.cuda
 def test_api_on_card_equals_cpu(dev):

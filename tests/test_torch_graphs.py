@@ -110,6 +110,78 @@ def test_apply_batch_and_seed_weights(case):
                         jcoo.resolve_seed_weights(gj, bj))
 
 
+#: Slots for the seed-weight cases: (src, dst, valid, w), n = 8. (0, 1) has
+#: three live slots (weights 3, 3 and 8), (2, 3) two (4 and 9), (4, 5) a
+#: live slot of weight 2 beside a dead one of weight 50, (1, 2) only a
+#: dead slot; (6, 7) is one plain edge.
+_SEED_SLOTS = [(0, 1, True, 3), (1, 0, True, 3), (2, 3, True, 4),
+               (3, 2, True, 9), (4, 5, False, 50), (5, 4, True, 2),
+               (6, 7, True, 5), (7, 6, True, 5), (0, 1, True, 8),
+               (1, 2, False, 60)]
+_SEED_CASES = {
+    # Two rows of one key (both orientations of one pair).
+    "two-rows-one-key": ([(0, 1, jcoo.OP_DEL), (1, 0, jcoo.OP_REW, 5)], 2),
+    # Parallel live slots of different weights: the maximum wins.
+    "parallel-slots-max": ([(2, 3, jcoo.OP_DEL), (0, 1, jcoo.OP_REW, 20),
+                            (3, 2, jcoo.OP_REW, 1)], 3),
+    # A dead slot of a higher weight is ignored.
+    "dead-slot-ignored": ([(4, 5, jcoo.OP_DEL), (5, 4, jcoo.OP_REW, 7)], 2),
+    # A non-edge (only a dead slot, or none): the weight becomes 1.
+    "non-edge": ([(1, 2, jcoo.OP_DEL), (3, 6, jcoo.OP_REW, 4),
+                  (2, 1, jcoo.OP_REW, 9), (1, 5, jcoo.OP_DEL)], 4),
+    # Padding rows beside a delete and an insert.
+    "padding-rows": ([(6, 7, jcoo.OP_DEL), (2, 6, jcoo.OP_INS, 4)], 6),
+    "u-1": ([(3, 2, jcoo.OP_DEL)], 1),
+    "u-0": ([], 0),
+}
+
+
+def _seed_graphs(directed: bool):
+    src, dst, valid, w = (np.array(c, dtype) for c, dtype in zip(
+        zip(*_SEED_SLOTS), (np.int32, np.int32, bool, np.int32)))
+    if directed:
+        from repro.core import directed as jdir
+        from repro_torch.core import directed as tdir
+        return (jdir.DirectedGraph(src, dst, valid, w, 8),
+                tdir.DirectedGraph(*(torch.from_numpy(a)
+                                     for a in (src, dst, valid, w)), 8))
+    return (jcoo.Graph(src, dst, valid, w, 8),
+            cv.graph_from_numpy(src, dst, valid, w, 8, device=CPU))
+
+
+def _seed_batch(ups, pad):
+    if pad == 0:
+        z = np.zeros(0, np.int32)
+        return jcoo.BatchUpdate(z, z, z.astype(bool), z.astype(bool), z,
+                                z.astype(bool))
+    return jcoo.make_batch(ups, pad_to=pad)
+
+
+@pytest.mark.parametrize("case", list(_SEED_CASES))
+def test_seed_weights_edge_cases(case):
+    """`resolve_seed_weights` on slot patterns the batch generators rarely
+    make, against the reference bit for bit (on the CPU the slot match is
+    `kernels/seed_match`'s plain version)."""
+    gj, gt = _seed_graphs(directed=False)
+    bj = _seed_batch(*_SEED_CASES[case])
+    _assert_batch_equal(tcoo.resolve_seed_weights(gt, _port_batch(bj)),
+                        jcoo.resolve_seed_weights(gj, bj))
+
+
+def test_directed_seed_weights_match_the_exact_arc():
+    """The arc key: (u, v) and (v, u) are two keys, each seeded at its own
+    arc's maximum live weight (3 against 9 for (2, 3) and (3, 2))."""
+    from repro.core import directed as jdir
+    from repro_torch.core import directed as tdir
+    gj, gt = _seed_graphs(directed=True)
+    bj = jcoo.make_batch([(2, 3, jcoo.OP_DEL), (3, 2, jcoo.OP_DEL),
+                          (1, 0, jcoo.OP_REW, 2), (4, 5, jcoo.OP_DEL),
+                          (2, 1, jcoo.OP_DEL), (0, 1, jcoo.OP_DEL)], pad_to=8)
+    got = tdir.resolve_seed_weights_directed(gt, _port_batch(bj))
+    _assert_batch_equal(got, jdir.resolve_seed_weights_directed(gj, bj))
+    assert got.w[:6].tolist() == [4, 9, 2, 1, 1, 8]
+
+
 def test_apply_batch_chain_reuses_freed_slots():
     """Three ticks of random churn applied in turn stay slot-identical."""
     n = 40

@@ -183,6 +183,7 @@ def test_update_spans_nest_as_the_update_runs(frontier):
             ("prepare.observe", "op", 1), ("prepare.retile", "op", 1),
             ("read.prepare.observe", "prepare.observe", 1),
             ("read.prepare.retile", "prepare.retile", 3),
+            ("bhl.seed_weights", "op", 1),
             ("bhl.search", "op", 1),
             ("wave.search_improved", "bhl.search", search),
             ("bhl.repair_base", "op", 1),
