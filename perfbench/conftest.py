@@ -24,10 +24,12 @@ SMALL_MIX = {"query": {"microbatch": 8, "pool": 4096, "check_sample": 256,
              "update": {"deletes": 32, "trace_ops": 3}}
 
 
-def small_cell(workload: str):
-    """The cell `workload` of the benchmark, cut to a test's size."""
+def small_cell(workload: str, spec: dict | None = None, root: Path = ROOT):
+    """The cell `workload` of the benchmark (or of `spec`, with its files
+    under `root`), cut to a test's size."""
     from perfbench import harness
-    cell = harness.resolve(harness.load_spec(), workload)
+    spec = harness.load_spec() if spec is None else spec
+    cell = harness.resolve(spec, workload, root)
     cell.config.update({k: v for k, v in SMALL_CONFIG.items()
                         if k in cell.config})
     cell.mix.update(SMALL_MIX[cell.mix["kind"]])

@@ -15,6 +15,13 @@ The window drives the program exactly as its serve loop does
 <batch has inserts>)`, BHL⁺ `batchhl_update` with that plan, then a
 device synchronise). One caller, back to back (a closed loop).
 
+A traced run (`--trace 1`) profiles two stretches of its window: the
+first `trace_ops` ops with the program's spans off (the device's busy
+time, kernels and idle gaps by the harness's spans), and the next
+`trace_ops` with them on (`repro_torch.trace`; the same reduced by the
+program's spans, `spans.py`). It also counts the program's host reads
+(`trace.HOST_READS`) around each op. An untraced run does neither.
+
 What it checks, after the window and with the program's state freed,
 is held against the plain reference (`reference.py`): the sampled
 answers of a query cell, and the live edge set and the whole labelling
@@ -23,6 +30,7 @@ after the last batch of an update cell. Every comparison is exact.
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import gc
 import importlib.util
@@ -89,7 +97,8 @@ class Cell:
 
 
 def resolve(spec: dict, workload: str, root: Path = ROOT) -> Cell:
-    """The cell `workload` of the benchmark, with its files read."""
+    """The cell `workload` of the benchmark, with its files read from
+    the checkout at `root`."""
     cells = {w["name"]: w for w in spec["workloads"]}
     if workload not in cells:
         raise KeyError(f"no workload {workload!r}; the benchmark has "
@@ -101,7 +110,8 @@ def resolve(spec: dict, workload: str, root: Path = ROOT) -> Cell:
         raise ValueError(f"{conf['file']}: the benchmark runs BHL+ (the "
                          f"improved batch search) only, not "
                          f"{config['variant']!r}")
-    mix = json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text())
+    mix = json.loads((root / HERE.name / "traffic" / f"{w['traffic']}.json"
+                      ).read_text())
 
     def mine(entries):
         return [m for m in entries if workload in m.get("workloads",
@@ -115,6 +125,7 @@ class Program:
     the harness itself may break one of them underneath a run."""
 
     def __init__(self):
+        from repro_torch import trace
         from repro_torch.core import engine
         from repro_torch.core.batch import batchhl_update
         from repro_torch.core.construct import (build_labelling,
@@ -132,10 +143,15 @@ class Program:
         self.from_edges = from_edges
         self.make_batch = make_batch
         self._relax_kernel = relax_kernel
+        self.trace = trace
 
     def launches(self) -> int:
         """Kernel A's launches so far (its wrapper's count)."""
         return self._relax_kernel.launches
+
+    def host_reads(self) -> int:
+        """The program's host reads so far, over every site."""
+        return sum(self.trace.HOST_READS.values())
 
 
 @dataclasses.dataclass
@@ -155,6 +171,8 @@ class Run:
     retiles: int = 0
     prepare_s: list = dataclasses.field(default_factory=list)
     traced: dict | None = None
+    # The second traced stretch: its ops, waves and reduction by span.
+    spans: dict | None = None
     per_op: list = dataclasses.field(default_factory=list)
     setup_parts: dict = dataclasses.field(default_factory=dict)
 
@@ -226,20 +244,50 @@ def query_op(prog, st: State, mix: dict, qs: np.ndarray, qt: np.ndarray,
         return d.cpu().numpy()
 
 
+def counts_reads(prog, tracer: Tracer) -> bool:
+    """Whether the window counts the program's host reads: traced runs
+    only. The count starts with the window."""
+    if not tracer.enabled:
+        return False
+    prog.trace.HOST_READS.clear()
+    return True
+
+
+def end_stretch(prog, tracer: Tracer, run: Run, k: int, trace_ops: int,
+                launches0: int, waves) -> None:
+    """End the traced stretch under way after the window's op k: the
+    first (`run.traced`), which is followed by the second where it ran
+    its `trace_ops` ops, or the second (`run.spans`). Either holds the
+    ops it traced, which are fewer where the window ended inside it;
+    `waves(rec)` is an op's waves by its record."""
+    tracer.stop()
+    if run.traced is None:
+        run.traced = {"ops": k, "launches": prog.launches() - launches0,
+                      "waves": sum(waves(r) for r in run.per_op[:k])}
+        if k == trace_ops:
+            tracer.start_spans(prog.trace)
+    else:
+        ops = run.per_op[trace_ops:k]
+        run.spans = {"ops": len(ops), "waves": sum(waves(r) for r in ops)}
+
+
 def drive_queries(prog, st: State, mix: dict, stream, seconds: float,
                   tracer: Tracer, run: Run, device):
     """The window of a query mix, full microbatches back to back:
     (sources, targets, answers) of every query answered, in order."""
     trace_ops = int(mix["trace_ops"]) if tracer.enabled else 0
+    reads = counts_reads(prog, tracer)
     mb = stream.microbatch
     answers = []
     launches0 = prog.launches()
-    tracer.start() if trace_ops else None
+    if trace_ops:
+        tracer.start()
     t_start = time.perf_counter()
     deadline = t_start + seconds
     k = 0
     while time.perf_counter() < deadline:
         before = prog.waves["bibfs"]
+        reads0 = prog.host_reads() if reads else 0
         t0 = time.perf_counter()
         answers.append(query_op(prog, st, mix, *stream.batch(k), tracer,
                                 device))
@@ -248,17 +296,21 @@ def drive_queries(prog, st: State, mix: dict, stream, seconds: float,
         waves = prog.waves["bibfs"] - before
         run.waves["bibfs"] += waves
         run.per_op.append({"ms": (t1 - t0) * 1e3, "bibfs": waves})
+        if reads:
+            run.per_op[-1]["reads"] = prog.host_reads() - reads0
         k += 1
-        if k == trace_ops:
-            tracer.stop()
-            live = int(st.g.valid.sum())
-            waves_traced = sum(r["bibfs"] for r in run.per_op[:k])
-            run.traced = {"ops": k, "launches": prog.launches() - launches0,
-                          "waves": waves_traced, "bytes": waves_traced *
-                          roofline.wave_bytes(mb, st.n, live, hub=False)}
+        if tracer.active and k in (trace_ops, 2 * trace_ops):
+            end_stretch(prog, tracer, run, k, trace_ops, launches0,
+                        lambda r: r["bibfs"])
     run.window_s = time.perf_counter() - t_start
-    tracer.stop()
+    if tracer.active:
+        end_stretch(prog, tracer, run, k, trace_ops, launches0,
+                    lambda r: r["bibfs"])
     run.ops, run.items = k, k * mb
+    if run.traced is not None:
+        live = int(st.g.valid.sum())
+        run.traced["bytes"] = run.traced["waves"] * roofline.wave_bytes(
+            mb, st.n, live, hub=False)
     qs, qt = stream.take(np.arange(k * mb))
     return qs, qt, np.concatenate(answers)
 
@@ -289,20 +341,29 @@ def update_op(prog, st: State, stream, k: int, tracer: Tracer, device,
     return g2, lab2, aff, plan, time.perf_counter() - t0
 
 
+def update_waves(rec: dict) -> int:
+    """A batch's search and repair waves, by its record."""
+    return sum(rec.get(w, 0) for w in UPDATE_WAVES)
+
+
 def drive_updates(prog, st: State, mix: dict, stream, seconds: float,
                   tracer: Tracer, run: Run, device) -> None:
     trace_ops = int(mix["trace_ops"]) if tracer.enabled else 0
-    kept = []              # (valid, src, dst, aff) of each traced batch
+    reads = counts_reads(prog, tracer)
+    kept = []              # (valid, src, dst, aff) of each batch of the
+                           # first traced stretch
     affected = []          # device counts, read after the window
     launches0 = prog.launches()
     retiles0 = st.engine.retile_count
-    tracer.start() if trace_ops else None
+    if trace_ops:
+        tracer.start()
     t_start = time.perf_counter()
     deadline = t_start + seconds
     k = 0
     while time.perf_counter() < deadline:
         before = {w: prog.waves[w] for w in UPDATE_WAVES}
         r0 = st.engine.retile_count
+        reads0 = prog.host_reads() if reads else 0
         g2, lab2, aff, plan, secs = update_op(prog, st, stream, k, tracer,
                                               device, run)
         st.g, st.lab, st.plan = g2, lab2, plan
@@ -312,31 +373,34 @@ def drive_updates(prog, st: State, mix: dict, stream, seconds: float,
         run.per_op.append({"ms": secs * 1e3, "retiles":
                            st.engine.retile_count - r0,
                            **{w: v for w, v in waves.items() if v}})
+        if reads:
+            run.per_op[-1]["reads"] = prog.host_reads() - reads0
         if tracer.enabled:
             affected.append(aff.sum())
         k += 1
-        if tracer.active:
+        if tracer.active and run.traced is None:
             kept.append((g2.valid, g2.src if stream.n_ins else None,
                          g2.dst if stream.n_ins else None, aff))
-        if k == trace_ops:
-            tracer.stop()
-            run.traced = {"ops": k, "launches": prog.launches() - launches0}
+        if tracer.active and k in (trace_ops, 2 * trace_ops):
+            end_stretch(prog, tracer, run, k, trace_ops, launches0,
+                        update_waves)
     run.window_s = time.perf_counter() - t_start
-    tracer.stop()
+    if tracer.active:
+        end_stretch(prog, tracer, run, k, trace_ops, launches0,
+                    update_waves)
     run.ops, run.items = k, k * stream.batch_size
     run.retiles = st.engine.retile_count - retiles0
     if affected:
         for rec, a in zip(run.per_op, torch.stack(affected).tolist()):
             rec["affected"] = a
     if run.traced is not None:
-        run.traced.update(update_bytes(st, run, kept))
+        run.traced["bytes"] = update_bytes(st, run, kept)
 
 
-def update_bytes(st: State, run: Run, kept: list) -> dict:
-    """The bytes the traced batches' waves need (`roofline.py`)."""
+def update_bytes(st: State, run: Run, kept: list) -> int:
+    """The bytes the first stretch's batches' waves need (`roofline.py`)."""
     planes = int(run.config["landmarks"])
     total = 0
-    waves = 0
     for rec, (valid, src, dst, aff) in zip(run.per_op, kept):
         src = st.g.src if src is None else src
         dst = st.g.dst if dst is None else dst
@@ -350,8 +414,7 @@ def update_bytes(st: State, run: Run, kept: list) -> dict:
                   + rec.get("repair", 0) * roofline.wave_bytes(
                       planes, st.n, live, hub=True, mask_planes=planes,
                       used=inner))
-        waves += sum(rec.get(w, 0) for w in UPDATE_WAVES)
-    return {"bytes": total, "waves": waves}
+    return total
 
 
 # --- the check ---
@@ -403,6 +466,17 @@ def program_state(st: State) -> dict:
 
 # --- the run ---
 
+def spare(engine):
+    """A copy of `engine` whose caches are its own: a shallow copy with
+    each dict and list attribute copied, so that what the copy prepares
+    leaves `engine` as it was."""
+    twin = copy.copy(engine)
+    for name, value in vars(engine).items():
+        if isinstance(value, (dict, list)):
+            setattr(twin, name, copy.copy(value))
+    return twin
+
+
 def setup_cell(prog, cell: Cell, seed: int, device, run: Run,
                tracer: Tracer):
     """Build the cell's state and stream, and warm its one shape."""
@@ -423,8 +497,12 @@ def setup_cell(prog, cell: Cell, seed: int, device, run: Run,
 
         def warm():
             # Batch 0 from the built snapshot, thrown away: the window
-            # starts from the built snapshot again.
-            update_op(prog, st, stream, 0, tracer, device, Run(
+            # starts from the built snapshot again. It runs on a copy of
+            # the engine, so that the tiling it prepares is not in the
+            # window's engine's cache: there batch 0 of a mix with
+            # insertions retiles as every later batch does.
+            update_op(prog, dataclasses.replace(st, engine=spare(
+                st.engine)), stream, 0, tracer, device, Run(
                 run.workload, run.kind, run.config, run.mix))
     st.graph_order = None
     run.setup_parts["stream_s"] = time.perf_counter() - t
@@ -468,6 +546,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             if device.type == "cuda" else 0)
     if run.traced is not None:
         run.traced["summary"] = tracer.finish()
+    if run.spans is not None:
+        run.spans["reduced"] = tracer.reduced
     log(f"{cell.name}: {run.ops} ops, {run.items} items in "
         f"{run.window_s:.3f} s; waves {dict(run.waves)}")
 
@@ -560,7 +640,8 @@ def write_record(cell: Cell, seed: int, trace: bool, result: dict,
            "card": card, "result": result, "setup_s": run.setup_s,
            "setup_parts": run.setup_parts, "window_s": run.window_s,
            "traced": traced, "trace_kernels": summary and summary["kernels"],
-           "trace_idle": summary and summary["idle"], "per_op": run.per_op}
+           "trace_idle": summary and summary["idle"],
+           "trace_spans": run.spans, "per_op": run.per_op}
     path = out_dir / f"{cell.name}.{seed}.trace{int(trace)}.json"
     path.write_text(json.dumps(rec))
 

@@ -207,3 +207,29 @@ def under(summary: dict, pick) -> tuple[dict, float]:
             for k, s in st["device"].items():
                 device[k] = device.get(k, 0.0) + s
     return device, idle
+
+
+def ran(summary: dict, pick) -> bool:
+    """Whether the reduction holds device records and a span for which
+    `pick(name)` is true: else a reader of it has nothing to read."""
+    return summary.get("busy_s", 0) > 0 and any(
+        pick(name) for name in summary.get("spans", {}))
+
+
+def device_ms_per_op(summary: dict, ops: int, pick,
+                     keep=lambda kernel: True):
+    """Device ms an op launched under the spans `pick` takes (`under`),
+    of the kernels for which `keep(name)` is true; None where nothing
+    of it ran."""
+    if not ops or not ran(summary, pick):
+        return None
+    device, _ = under(summary, pick)
+    return 1e3 * sum(s for k, s in device.items() if keep(k)) / ops
+
+
+def idle_us_per_wave(summary: dict, waves: int, pick):
+    """Idle µs a wave charged to the spans `pick` takes (`under`); None
+    where nothing of it ran."""
+    if not waves or not ran(summary, pick):
+        return None
+    return 1e6 * under(summary, pick)[1] / waves

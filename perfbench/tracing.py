@@ -1,5 +1,6 @@
-"""The traced span of a run: `torch.profiler` over the first ops of the
-window, reduced to what the per-layer metrics and the breakdown read.
+"""The traced stretches of a run: `torch.profiler` over the first ops of
+the window, and over as many more with the program's own spans on,
+reduced to what the per-layer metrics and the breakdown read.
 
 The harness wraps each call into a layer of the program in a span of its
 own (`SPANS`, `torch.profiler.record_function`); the device's kernels,
@@ -11,6 +12,10 @@ copies and fills come from the profiler's device records. From them:
 * `kernels`: device seconds and records by name, in the window;
 * `idle`: each gap in the device's work, charged to the innermost span
   the host was in at the gap's middle ("loop" outside every span).
+
+The second stretch, with the program's spans on, is reduced by
+`spans.reduce` alone: the first stays as it was read before the program
+had spans, since the spans cost the device some idle time.
 """
 from __future__ import annotations
 
@@ -86,10 +91,13 @@ def summarize(prof) -> dict:
 
 
 class Tracer:
-    """Spans always when tracing; the profiler only over the traced span.
+    """Spans always when tracing; the profiler only over the traced
+    stretches.
 
     `warm()` runs the profiler once in set-up, so that its start-up is
-    not in the window; `start()`/`stop()` bracket the traced ops.
+    not in the window; `start()`/`stop()` bracket the first stretch's
+    ops, `start_spans(trace)`/`stop()` the second's, with the program's
+    trace module `trace` turned on inside the profiler.
     """
 
     def __init__(self, enabled: bool, device: torch.device):
@@ -97,7 +105,10 @@ class Tracer:
         self.device = device
         self.prof = None
         self._done = None
+        self._spans = None        # the second stretch's profiler, stopped
+        self._trace = None        # the program's trace module, while on
         self.summary: dict | None = None
+        self.reduced: dict | None = None
 
     def span(self, name: str):
         if not self.enabled:
@@ -127,6 +138,16 @@ class Tracer:
             self.prof = self._profiler()
             self.prof.__enter__()
 
+    def start_spans(self, trace) -> None:
+        """The second stretch: the profiler again, and inside it the
+        program's spans (`trace.enable(True)`)."""
+        if self.enabled and self.prof is None and self._spans is None:
+            self._sync()
+            self.prof = self._profiler()
+            self.prof.__enter__()
+            self._trace = trace
+            trace.enable(True)
+
     @property
     def active(self) -> bool:
         return self.prof is not None
@@ -134,12 +155,24 @@ class Tracer:
     def stop(self) -> None:
         if self.prof is None:
             return
+        if self._trace is not None:
+            self._trace.enable(False)
         self._sync()
-        self._done, self.prof = self.prof, None
-        self._done.__exit__(None, None, None)
+        prof, self.prof = self.prof, None
+        if self._trace is not None:
+            self._trace, self._spans = None, prof
+        else:
+            self._done = prof
+        prof.__exit__(None, None, None)
 
     def finish(self) -> dict | None:
-        """The traced span's summary (reduced once the window is over)."""
+        """The first stretch's summary; the second's reduction by span
+        goes to `reduced` (each reduced once the window is over)."""
+        if self._spans is not None:
+            from perfbench.spans import reduce
+            self.reduced = reduce(self._spans.profiler.kineto_results
+                                  .events())
+            self._spans = None
         if self.summary is None and self._done is not None:
             self.summary = summarize(self._done)
             self._done = None
